@@ -1,0 +1,77 @@
+"""The port runs without jax: in a fresh interpreter, importing
+``tpubwa_torch.align.pipeline`` and ``tpubwa_torch.cli`` and aligning a
+few reads on the CPU leaves ``jax`` out of ``sys.modules``.  Also the
+CLI's refusals: no silent CPU fallback for ``--device cuda`` without a
+card, and a clear NotImplementedError for paths outside the port."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import io, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import tpubwa_torch.align.pipeline
+import tpubwa_torch.cli
+from tpubwa.index.fmindex import FMIndex
+from tpubwa.io.fasta import Contig
+from tpubwa.utils import sim
+
+d = sys.argv[1]
+codes = np.random.default_rng(1).integers(0, 4, 8000).astype(np.uint8)
+contigs = [Contig("c1", 8000, 0)]
+with open(d + "/ref.fa", "w") as f:
+    f.write(">c1\n" + "".join("ACGT"[c] for c in codes) + "\n")
+FMIndex.build(contigs, codes).save(d + "/ref.fa")
+sim.write_fastq(d + "/r.fq", sim.simulate_reads(codes, contigs, 12, seed=2))
+rc = tpubwa_torch.cli.main(["mem", "--device", "cpu", d + "/ref.fa",
+                            d + "/r.fq"])
+assert rc == 0, rc
+print("JAX_LOADED", "jax" in sys.modules, file=sys.stderr)
+"""
+
+
+def _run(args, tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, *args], capture_output=True,
+                          text=True, env=env, cwd=str(tmp_path), timeout=300)
+
+
+def test_port_runs_without_jax(tmp_path):
+    p = _run(["-c", SCRIPT, str(tmp_path)], tmp_path)
+    assert p.returncode == 0, p.stderr
+    assert "JAX_LOADED False" in p.stderr
+    sam = [ln for ln in p.stdout.splitlines() if not ln.startswith("@")]
+    assert len(sam) >= 12
+    assert sum(not int(ln.split("\t")[1]) & 4 for ln in sam) >= 10
+
+
+@pytest.mark.parametrize("argv,err", [
+    (["mem", "--device", "cpu", "REF", "R", "R"], "paired-end"),
+    (["mem", "--device", "cpu", "--chunks", "c", "REF", "R"], "--chunks"),
+    (["mem", "--device", "cpu", "-t", "2", "REF", "R"], "worker pool"),
+])
+def test_cli_refuses_unported_paths(tmp_path, argv, err):
+    for name in ("REF", "R"):
+        (tmp_path / name).write_text("")
+    p = _run(["-m", "tpubwa_torch.cli", *argv], tmp_path)
+    assert p.returncode != 0
+    assert "NotImplementedError" in p.stderr and err in p.stderr
+
+
+def test_cuda_device_without_card_raises():
+    import torch
+
+    from tpubwa_torch.align.pipeline import resolve_device
+
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"

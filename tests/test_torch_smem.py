@@ -1,0 +1,137 @@
+"""The port's SMEM collection and seed expansion against the JAX package.
+
+``collect_smems_chain``: slots < n of every Smems field, plus n and
+overflow, on a random genome and on a repeat-structured one (bench.py's
+``_repeat_genome`` recipe, small), including caps small enough to
+overflow and several round-2 waves.  The port sorts with a stable sort
+where the JAX package runs an unstable bitonic network, so tied
+(start, end) keys must carry equal payloads.
+
+``seed_rows``: packed[:n], n, l_rep and overflow, both packages fed the
+same Smems.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpubwa.config import MemOptions
+from tpubwa.index.fmindex import FMIndex
+from tpubwa.io.fasta import Contig
+
+torch.set_num_threads(1)
+
+OPT = MemOptions()
+B, L = 48, 160
+
+
+def _repeat_genome(rng, ref_len):
+    """bench.py's chr21-style recipe: segmental copies at ~2% divergence
+    with an Alu-like element every ~3 kb."""
+    n_seg, alu_len, alu_every = 8, 300, 3000
+    seg_len = ref_len // n_seg
+    base = rng.integers(0, 4, seg_len).astype(np.uint8)
+    alu = rng.integers(0, 4, alu_len).astype(np.uint8)
+    segs = []
+    for _ in range(n_seg):
+        seg = base.copy()
+        mut = rng.random(seg_len) < 0.02
+        seg[mut] = (seg[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+        for p in range(alu_every, seg_len - alu_len, alu_every):
+            a = alu.copy()
+            m = rng.random(alu_len) < 0.10
+            a[m] = (a[m] + rng.integers(1, 4, int(m.sum()))) % 4
+            seg[p:p + alu_len] = a
+        segs.append(seg)
+    return np.concatenate(segs)[:ref_len]
+
+
+def _setup(kind):
+    from tpubwa.ops.fm import DeviceIndex as JaxDI
+    from tpubwa.utils import sim
+    from tpubwa.utils.dna import encode
+    from tpubwa_torch.ops.fm import DeviceIndex
+
+    rng = np.random.default_rng(7)
+    n = 48_000
+    codes = (rng.integers(0, 4, n).astype(np.uint8) if kind == "random"
+             else _repeat_genome(rng, n))
+    contigs = [Contig("c1", n, 0)]
+    idx = FMIndex.build(contigs, codes)
+    reads = sim.simulate_reads(codes, contigs, B, length=150, err=0.02,
+                               indel=0.002, seed=3)
+    q = np.full((B, L), 4, np.int32)
+    lens = np.zeros(B, np.int32)
+    for b, (_, seq, _) in enumerate(reads):
+        ln = len(seq) - 5 * (b % 4)
+        q[b, :ln] = encode(seq[:ln])
+        lens[b] = ln
+    q[5, 40:44] = 4                      # an N run
+    lens[6] = 0                          # an empty row
+    lens[7] = 12                         # shorter than min_seed_len
+    return JaxDI.from_host(idx), DeviceIndex.from_host(idx, "cpu"), q, lens
+
+
+@pytest.fixture(scope="module", params=["random", "repeat"])
+def setup(request):
+    return request.param, _setup(request.param)
+
+
+CAPS = {"default": dict(out_cap=64, r2_cap=32, r2_lanes=None),
+        "tiny": dict(out_cap=4, r2_cap=2, r2_lanes=16)}
+
+
+@pytest.mark.parametrize("caps", ["default", "tiny"])
+def test_collect_smems_chain_matches_jax(setup, caps):
+    from tpubwa.ops.smem_chain import collect_smems_chain as jax_collect
+    from tpubwa_torch.ops.smem_chain import collect_smems_chain
+
+    kind, (jdi, tdi, q, lens) = setup
+    kw = dict(min_seed_len=OPT.min_seed_len, split_len=OPT.split_len,
+              split_width=OPT.split_width, max_mem_intv=OPT.max_mem_intv,
+              **CAPS[caps])
+    want = jax_collect(jdi, jnp.asarray(q), jnp.asarray(lens), **kw)
+    got = collect_smems_chain(tdi, torch.as_tensor(q),
+                              torch.as_tensor(lens), **kw)
+    n = got.n.numpy()
+    np.testing.assert_array_equal(n, np.asarray(want.n))
+    np.testing.assert_array_equal(got.overflow.numpy(),
+                                  np.asarray(want.overflow))
+    used = np.arange(kw["out_cap"])[None, :] < n[:, None]
+    g = np.stack([f.numpy() for f in got[:5]], axis=-1)     # [B, M, 5]
+    w = np.stack([np.asarray(f) for f in want[:5]], axis=-1)
+    np.testing.assert_array_equal(g[used], w[used])
+    for b in range(B):               # ties in (start, end) carry equal rows
+        rows = g[b, :n[b]]
+        for r in rows:
+            same = rows[(rows[:, 3] == r[3]) & (rows[:, 4] == r[4])]
+            assert (same == same[0]).all()
+    assert n.sum() > 0
+    if caps == "tiny":
+        assert got.overflow.numpy().any()
+
+
+def test_seed_rows_matches_jax(setup):
+    from tpubwa.ops.seeds import seed_rows as jax_seed_rows
+    from tpubwa.ops.smem_chain import collect_smems_chain as jax_collect
+    from tpubwa_torch.ops.seeds import seed_rows
+    from tpubwa_torch.ops.smem import Smems
+
+    kind, (jdi, tdi, q, lens) = setup
+    sm = jax_collect(jdi, jnp.asarray(q), jnp.asarray(lens),
+                     min_seed_len=OPT.min_seed_len, split_len=OPT.split_len,
+                     split_width=OPT.split_width,
+                     max_mem_intv=OPT.max_mem_intv)
+    for max_occ, cap in ((OPT.max_occ, OPT.max_seeds_per_read), (3, 5)):
+        want = jax_seed_rows(jdi, sm, max_occ=max_occ, per_read_cap=cap)
+        got = seed_rows(tdi, Smems(*(torch.as_tensor(np.array(f))
+                                     for f in sm)),
+                        max_occ=max_occ, per_read_cap=cap)
+        n = int(got.n)
+        assert n == int(want.n) and n > 0
+        np.testing.assert_array_equal(got.packed[:n].numpy(),
+                                      np.asarray(want.packed)[:n])
+        np.testing.assert_array_equal(got.l_rep.numpy(),
+                                      np.asarray(want.l_rep))
+        np.testing.assert_array_equal(got.overflow.numpy(),
+                                      np.asarray(want.overflow))

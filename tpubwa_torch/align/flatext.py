@@ -1,0 +1,164 @@
+"""Flat extension driver: chain + extend a whole read batch with native
+calls and a few device waves (port of the device half of
+``tpubwa.align.flatext``; ``prepare_jobs`` and ``finalize_fields`` are
+host code and are imported from there).
+
+  seed rows (host)
+    -> native ext_prepare   : chain/filter every read + one job descriptor
+                              per chain seed
+    -> device extend_jobs_* : gather q/t windows on device, band-doubling
+                              DP (the extension kernel), one call per wave
+    -> native ext_finalize  : sequential containment replay -> regions
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from tpubwa.native import load_native
+from tpubwa_torch.ops.extend_flat import (Q_PAD, T_PAD, extend_jobs,
+                                          extend_jobs_left,
+                                          extend_jobs_right)
+
+# job lists up to 2 * MIN_WAVE run the whole-seed program in one wave;
+# longer lists run separate left and right streams in waves of at most
+# MAX_WAVE lanes (wave sizes decide nothing in the output)
+MIN_WAVE = 256
+MAX_WAVE = 8192
+
+
+def native_lib():
+    """libtpubwa.so, or an error: the port has no path without it."""
+    lib = load_native()
+    if lib is None:
+        raise RuntimeError(
+            "libtpubwa.so (tpubwa/native) failed to build or load; the "
+            "port's main path needs it (g++ must be available)")
+    return lib
+
+
+def _ext_kw(aligner) -> dict:
+    opt = aligner.opt
+    return dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+                e_ins=opt.e_ins, zdrop=opt.zdrop, mat_max=opt.a, w0=opt.w,
+                core=aligner.ext_core)
+
+
+def run_waves(aligner, codes_dev, lens_dev, jobs: dict, n_jobs: int,
+              lens_host: np.ndarray) -> np.ndarray:
+    """Run the extension programs over the job list; returns int32
+    [n_jobs, 14] results in job order.
+
+    The LEFT and RIGHT halves run as separate wave streams, each sorted by
+    its own effective depth (~min(tlen, qlen + w)), so a wave holds lanes
+    of similar depth.  The right stream seeds from the left stream's
+    score0 (bwa's mem_chain2aln order)."""
+    if n_jobs <= 2 * MIN_WAVE:
+        return _run_waves_fused(aligner, codes_dev, lens_dev, jobs, n_jobs)
+
+    opt = aligner.opt
+    w0 = opt.w
+    jb = {k: v[:n_jobs] for k, v in jobs.items()}
+    qb = jb["qbeg"].astype(np.int64)
+    sl = jb["slen"].astype(np.int64)
+    d_l = np.minimum(jb["rbeg"] - jb["rmax0"], T_PAD)
+    d_r = np.minimum(jb["rmax1"] - jb["rbeg"] - sl, T_PAD)
+    q_l = np.minimum(qb, Q_PAD)
+    q_r = np.minimum(np.asarray(lens_host)[jb["read"]] - qb - sl, Q_PAD)
+    ord_l = np.argsort(np.minimum(d_l, q_l + w0 + 1), kind="stable")
+    ord_r = np.argsort(np.minimum(d_r, q_r + w0 + 1), kind="stable")
+    put = aligner._put
+    kw = _ext_kw(aligner)
+
+    def waves_of(order, fields, fn):
+        """fn over waves of the permuted job list -> [(rows, [k, take])]"""
+        res = []
+        for j0 in range(0, n_jobs, MAX_WAVE):
+            rows = order[j0:j0 + MAX_WAVE]
+            res.append((rows, fn([put(f[rows]) for f in fields])))
+        return [(rows, r.cpu().numpy()) for rows, r in res]
+
+    left8 = np.empty((n_jobs, 8), np.int32)
+    for rows, r in waves_of(
+            ord_l, [jb["read"], jb["qbeg"], jb["rbeg"], jb["rmax0"],
+                    jb["h0"]],
+            lambda a: extend_jobs_left(aligner.di, codes_dev, lens_dev, *a,
+                                       aligner.mat_dev,
+                                       pen_clip5=opt.pen_clip5, **kw)):
+        left8[rows] = r.T
+    score0 = left8[:, 7].copy()
+
+    out = np.empty((n_jobs, 14), np.int32)
+    out[:, 0:6] = left8[:, 0:6]
+    out[:, 12] = left8[:, 6]              # aw0
+    for rows, r in waves_of(
+            ord_r, [jb["read"], jb["qbeg"], jb["slen"], jb["rbeg"],
+                    jb["rmax1"], score0],
+            lambda a: extend_jobs_right(aligner.di, codes_dev, lens_dev, *a,
+                                        aligner.mat_dev,
+                                        pen_clip3=opt.pen_clip3, **kw)):
+        out[rows, 6:12] = r.T[:, 0:6]
+        out[rows, 13] = r.T[:, 6]         # aw1
+    return out
+
+
+def _run_waves_fused(aligner, codes_dev, lens_dev, jobs: dict,
+                     n_jobs: int) -> np.ndarray:
+    """Whole-seed extension (both halves in one program) per wave, for
+    short job lists."""
+    out = np.empty((max(n_jobs, 1), 14), np.int32)
+    for j0 in range(0, n_jobs, MAX_WAVE):
+        sl = slice(j0, min(j0 + MAX_WAVE, n_jobs))
+        res = _call_extend(aligner, codes_dev, lens_dev,
+                           *(jobs[k][sl] for k in ("read", "qbeg", "slen",
+                                                   "rbeg", "rmax0", "rmax1",
+                                                   "h0")))
+        out[sl] = res.cpu().numpy().T
+    return out
+
+
+def _call_extend(aligner, codes_dev, lens_dev, rd, qbeg, slen, rbeg, rmax0,
+                 rmax1, h0):
+    opt = aligner.opt
+    put = aligner._put
+    return extend_jobs(
+        aligner.di, codes_dev, lens_dev, put(rd), put(qbeg), put(slen),
+        put(rbeg), put(rmax0), put(rmax1), put(h0), aligner.mat_dev,
+        pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3,
+        **_ext_kw(aligner))
+
+
+def run_phased(aligner, codes_dev, lens_dev, handle, jobs: dict,
+               n_jobs: int, lens_host: np.ndarray) -> np.ndarray:
+    """Phased extension rounds — bwa's sequential seed-skip recovered for
+    batched device waves.
+
+    Round 1 runs the first-visited seed of every chain (native
+    ext_phase1); the native replay (ext_missing) then re-walks the reads
+    with the results so far and returns exactly the jobs a further round
+    must run; ext_finalize's sequential replay never reads a slot that was
+    not run.  Output is identical to running every job."""
+    lib = native_lib()
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+
+    results = np.zeros((max(n_jobs, 1), 14), np.int32)
+    have = np.zeros(max(n_jobs, 1), np.uint8)
+    ids = np.empty(max(n_jobs, 1), np.int64)
+    n1 = lib.ext_phase1(handle, ids.ctypes.data_as(i64p))
+    run = ids[:n1].copy()
+    while run.size:
+        sub = {k: np.ascontiguousarray(v[:n_jobs][run])
+               for k, v in jobs.items()}
+        results[run] = run_waves(aligner, codes_dev, lens_dev, sub, run.size,
+                                 lens_host=lens_host)
+        have[run] = 1
+        n_miss = lib.ext_missing(
+            handle, results.ctypes.data_as(i32p), have.ctypes.data_as(u8p),
+            ids.ctypes.data_as(i64p), len(ids))
+        if n_miss < 0:
+            raise RuntimeError("ext_missing capacity exceeded")
+        run = ids[:n_miss].copy()
+    return results

@@ -1,0 +1,850 @@
+"""Flat columnar SAM finalization (port of ``tpubwa.align.flatsam``).
+
+Reads are processed as columnar numpy + a few device calls + one native
+emit:
+
+  * `flat_core` — the shared per-lane pipeline (records AND their XA
+    alternates are "lanes"): device window gathers, vectorized
+    band-width/retry control (replicas of infer_bw and reg2aln_g's
+    band-doubling loop), device-RLE'd cigars, vectorized edge-deletion
+    squeeze, NM/MD inputs from a device mismatch pack
+  * single-region reads: direct columnar emission
+  * multi-region reads (`classify_multi`): columnar sort_dedup +
+    mark_primary for the single-primary fast case
+  * SAM text: ONE native call (native/samemit.cpp) renders every record
+
+Everything else (patch-triggering region geometry, multiple primaries /
+supplementary alignments, cigar-pack overflow) goes to the per-read
+generator tier, whose output is identical by construction.
+
+The device halves (`_flat_windows`, `_ga_rows`, `_gather_rows`) are torch
+ops; the host functions are carried over from the JAX package (its
+module imports jax), changed only where they called into jax.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from tpubwa.align.region import AlnReg
+from tpubwa.config import MemOptions
+from tpubwa.native import load_native
+from tpubwa.utils.rounds import drive_rounds
+from tpubwa_torch.align import finalize
+from tpubwa_torch.ops.fm import DeviceIndex, ref_window_right
+from tpubwa_torch.ops.global_align import (cigar_nm_md,
+                                           global_align_cigar_batch)
+
+QPAD = 192     # query window pad (== GA bucket Q)
+TWIN = 256     # reference window pad (== GA bucket T)
+MD_CHARS = "ACGTN"
+CIGAR_OPS = "MIDSH"
+
+
+def _trunci(x) -> np.ndarray:
+    """float -> int with Python int() semantics (truncate toward zero)."""
+    return np.trunc(x).astype(np.int64)
+
+
+def _log_exact(l: np.ndarray) -> np.ndarray:
+    """math.log per distinct integer value (bit-exact vs the scalar path;
+    numpy's SIMD log may differ by an ulp)."""
+    ul, inv = np.unique(l, return_inverse=True)
+    logs = np.array([math.log(float(v)) for v in ul], dtype=np.float64)
+    return logs[inv]
+
+
+def _infer_bw_vec(l1, l2, score, a: int, q: int, r: int) -> np.ndarray:
+    """finalize.infer_bw, vectorized."""
+    w = _trunci((np.minimum(l1, l2) * a - score - q) / r + 2.0)
+    w = np.maximum(w, np.abs(l1 - l2))
+    zero = (l1 == l2) & (l1 * a - score < (q + r - a) * 2)
+    return np.where(zero, 0, w)
+
+
+MM_K = 24   # per-lane mismatch pack capacity (150bp @ a few % error)
+
+
+def _flat_windows(di: DeviceIndex, codes, rd, qb, lq, rb, rlen, rev, *,
+                  q_pad: int, t_win: int, a: int, b: int, mm_k: int = MM_K):
+    """Device half of the flat finalize: build the SAM/DP-oriented query
+    and reference window buffers (genome-forward; revcomp'd rows for rev
+    hits), plus the exact-match score, mismatch count, and a compacted
+    mismatch pack (positions + reference letters).
+
+    Returns (qD int8 [N, q_pad], tD int8 [N, t_win], pack int16
+    [N, 2+mm_k] = score, nm, (letter<<8 | pos))."""
+    I32 = torch.int32
+    I16 = torch.int16
+    dev = codes.device
+    L = codes.shape[1]
+    qg = codes[rd].to(I32)                                   # [N, L]
+    jq = torch.arange(q_pad, dtype=I32, device=dev)[None, :]
+    qF = qg.gather(1, (qb[:, None] + jq).clamp(max=L - 1).to(torch.int64))
+    qmask = jq < lq[:, None]
+    qF = torch.where(qmask, qF, 4)
+
+    def revrows(arr, ln, P):
+        j = torch.arange(P, dtype=I32, device=dev)[None, :]
+        idx = (ln[:, None] - 1 - j).clamp(0, P - 1).to(torch.int64)
+        return arr.gather(1, idx)
+
+    def comp(x):
+        return torch.where(x < 4, 3 - x, x)
+
+    rev_c = rev[:, None]
+    qD = torch.where(rev_c, comp(revrows(qF, lq, q_pad)), qF)
+    qD = torch.where(qmask, qD, 4)
+
+    W = ref_window_right(di, rb, t_win)                 # [N, t_win] 2l-asc
+    jt = torch.arange(t_win, dtype=I32, device=dev)[None, :]
+    tmask = jt < rlen[:, None]
+    W = torch.where(tmask, W, 4)
+    tD = torch.where(rev_c, comp(revrows(W, rlen, t_win)), W)
+    tD = torch.where(tmask, tD, 4)
+
+    # exact-match pairing (orientation-invariant): bwa_fill_scmat values
+    # are {match: a, mismatch: -b, N: -1}
+    tq = W[:, :q_pad]
+    pair = torch.where(qF >= 4, -1, torch.where(tq == qF, a, -b))
+    exact_score = torch.where(qmask, pair, 0).sum(dim=1)
+    mm = qmask & ((qD != tD[:, :q_pad]) | (qD >= 4))
+    nm = mm.sum(dim=1)
+    # compacted mismatch pack: first mm_k mismatch columns, ascending
+    key = torch.where(mm, jq, q_pad + 1)
+    pos = torch.sort(key, dim=1).values[:, :mm_k]
+    let = tD[:, :q_pad].gather(1, pos.clamp(max=q_pad - 1).to(torch.int64))
+    packed = torch.cat(
+        [exact_score.to(I16)[:, None], nm.to(I16)[:, None],
+         (let.to(I16) << 8) | pos.to(I16)], dim=1)
+    return qD.to(torch.int8), tD.to(torch.int8), packed
+
+
+GA_K = 24   # per-lane cigar-segment pack capacity
+
+
+def _ga_rows(qD, tD, rows, qlen, tlen, w, mat, *, o_del: int, e_del: int,
+             o_ins: int, e_ins: int, ga_k: int = GA_K):
+    """Global alignment over device-resident window buffers: gather the
+    requested lanes, run the batched DP + traceback, and run-length-encode
+    the traceback on the device into a compact int16 [M, 2+ga_k] pack
+    (col0 score, col1 nseg, then (len<<2 | op) per cigar segment in CIGAR
+    order).  Lanes with nseg > ga_k are re-rendered by the caller via the
+    generator path."""
+    I32 = torch.int32
+    I16 = torch.int16
+    dev = qD.device
+    res = global_align_cigar_batch(
+        qD[rows].to(I32), qlen, tD[rows].to(I32), tlen, mat, w,
+        o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins)
+    s = res.steps.to(I32)                               # [M, S] ops, 3 = end
+    M = s.shape[0]
+    valid = s != 3
+    prev = torch.cat([torch.full((M, 1), -1, dtype=I32, device=dev),
+                      s[:, :-1]], dim=1)
+    newseg = valid & (s != prev)
+    segid = torch.where(valid, torch.cumsum(newseg.to(I32), dim=1), 0)
+    nseg = newseg.sum(dim=1, dtype=I32)                 # [M]
+    dst = segid.clamp(max=ga_k + 1).to(torch.int64)     # slot 0 unused
+    lens = torch.zeros((M, ga_k + 2), dtype=I32, device=dev).scatter_add(
+        1, dst, valid.to(I32))
+    ops = torch.zeros((M, ga_k + 2), dtype=I32, device=dev).scatter_reduce(
+        1, dst, torch.where(valid, s, 0), "amax")
+    # steps come out in traceback (reverse) order; cigar segment c is
+    # steps-segment (nseg - c)
+    c = torch.arange(ga_k, dtype=I32, device=dev)[None, :]
+    src = (nseg[:, None] - c).clamp(0, ga_k + 1).to(torch.int64)
+    in_rng = (c < nseg[:, None]) & (nseg[:, None] <= ga_k)
+    seg = torch.where(in_rng,
+                      (lens.gather(1, src) << 2) | ops.gather(1, src), 0)
+    return torch.cat([res.score.to(I16)[:, None], nseg.to(I16)[:, None],
+                      seg.to(I16)], dim=1)
+
+
+def _gather_rows(qD, tD, rows):
+    """Row-gather of the device window buffers (for gapped cigars' NM/MD
+    and for mismatch packs that overflowed MM_K)."""
+    return qD[rows], tD[rows]
+
+
+def mapq_se_vec(opt: MemOptions, lq, rlen, score, frac, sub, csub,
+                sub_n=None) -> np.ndarray:
+    """finalize.approx_mapq_se vectorized (exact integer/float ordering
+    preserved, including the sub_n penalty's pre-clamp position)."""
+    a_, b_ = opt.a, opt.b
+    sub_e = np.where(sub == 0, opt.min_seed_len * a_, sub)
+    sub_e = np.maximum(sub_e, csub)
+    lmax = np.maximum(lq, rlen)
+    identity = 1.0 - (lmax * a_ - score) / (a_ + b_) / lmax
+    tmp = np.where(lmax < opt.mapQ_coef_len, 1.0,
+                   opt.mapQ_coef_fac / _log_exact(lmax))
+    tmp = tmp * identity * identity
+    mapq = _trunci(6.02 * (score - sub_e) / a_ * tmp * tmp + 0.499)
+    mapq = np.where(score == 0, 0, mapq)
+    if sub_n is not None:
+        pen = _trunci(4.343 * _log_exact(sub_n + 1) + 0.499)
+        mapq = mapq - np.where(sub_n > 0, pen, 0)
+    mapq = np.maximum(np.minimum(mapq, 60), 0)
+    mapq = _trunci(mapq * (1.0 - frac) + 0.499)
+    return np.where(sub_e >= score, 0, mapq)
+
+
+def flat_core(aligner, codes_dev, rd, L, rb, re, qb, qe, truesc, aw):
+    """The shared flat-record pipeline for N selected single regions:
+    device windows -> band-doubling GA retry -> columnar cigars ->
+    edge-deletion squeeze -> NM/MD inputs.
+
+    rd indexes rows of codes_dev; all other inputs are int64 [N] columns.
+    Returns a dict of emission columns; ``ok`` is False for lanes whose
+    cigar overflowed the GA_K pack (callers re-render those via the
+    generator path)."""
+    opt: MemOptions = aligner.opt
+    put = aligner._put
+    l_pac = aligner.idx.l_pac
+    offs = aligner.contig_offsets
+    a_ = opt.a
+    N = rd.size
+    lq = qe - qb
+    rlen = re - rb
+    rev = rb >= l_pac
+    pos0 = np.where(rev, 2 * l_pac - re, rb)      # genome-forward, 0-based
+    rid = np.searchsorted(offs, pos0, side="right") - 1
+
+    # band for the final global alignment (reg2aln_g)
+    w2 = np.maximum(
+        _infer_bw_vec(lq, rlen, truesc, a_, opt.o_del, opt.e_del),
+        _infer_bw_vec(lq, rlen, truesc, a_, opt.o_ins, opt.e_ins))
+    w2 = np.where(w2 > opt.w, np.minimum(w2, aw), w2)
+
+    # device half: oriented query/ref window buffers + exact score + NM
+    qDj, tDj, pkj = _flat_windows(
+        aligner.di, codes_dev, put(rd.astype(np.int64)),
+        put(qb.astype(np.int32)), put(lq.astype(np.int32)),
+        put(rb.astype(np.int64)), put(rlen.astype(np.int32)), put(rev),
+        q_pad=QPAD, t_win=TWIN, a=opt.a, b=opt.b)
+
+    def run_ga(rows, w_cap):
+        """One _ga_rows round for lanes `rows` (band cap w_cap)."""
+        lqr, rlr = lq[rows], rlen[rows]
+        max_ins = _trunci((((lqr + 1) >> 1) * a_ - opt.o_ins)
+                          / opt.e_ins + 1.0)
+        max_del = _trunci((((lqr + 1) >> 1) * a_ - opt.o_del)
+                          / opt.e_del + 1.0)
+        max_gap = np.maximum(np.maximum(max_ins, max_del), 1)
+        ww = (max_gap + np.abs(rlr - lqr) + 1) >> 1
+        ww = np.minimum(ww, w_cap)
+        ww = np.maximum(ww, np.abs(rlr - lqr) + 3)
+        pk = _ga_rows(
+            qDj, tDj, put(rows.astype(np.int64)), put(lqr.astype(np.int32)),
+            put(rlr.astype(np.int32)), put(ww.astype(np.int32)),
+            aligner.mat_dev, o_del=opt.o_del, e_del=opt.e_del,
+            o_ins=opt.o_ins, e_ins=opt.e_ins)
+        return pk.cpu().numpy().astype(np.int64)
+
+    maxw = opt.w * 4
+    pk = pkj.cpu().numpy().astype(np.int64)
+    exact_score = pk[:, 0]
+    nm_dev = pk[:, 1]
+    mm_pos = pk[:, 2:] & 0xFF
+    mm_let = (pk[:, 2:] >> 8) & 0x7
+
+    # reg2aln_g's band-doubling retry loop, on shrinking subsets.  Cigars
+    # stay COLUMNAR: segs [N, GA_K] of (len<<2 | op) in cigar order +
+    # nseg [N] (-1 = pack overflow -> generator re-render).
+    segs = np.zeros((N, GA_K), np.int32)
+    segs[:, 0] = (lq << 2).astype(np.int32)
+    nseg = np.ones(N, np.int32)
+    last_sc = np.full(N, -(1 << 30), np.int64)
+    active = np.arange(N)
+    it = 0
+    while active.size:
+        w_eff = np.minimum(w2[active], maxw)
+        sc_it = np.empty(active.size, np.int64)
+        exact = (lq[active] == rlen[active]) & (w_eff == 0)
+        eidx = np.flatnonzero(exact)
+        if eidx.size:
+            rows = active[eidx]
+            sc_it[eidx] = exact_score[rows]
+            segs[rows] = 0
+            segs[rows, 0] = (lq[rows] << 2).astype(np.int32)
+            nseg[rows] = 1
+        didx = np.flatnonzero(~exact)
+        if didx.size:
+            rows = active[didx]
+            gp = run_ga(rows, w_eff[didx])
+            sc_it[didx] = gp[:, 0]
+            gn = gp[:, 1].astype(np.int32)
+            fit = gn <= GA_K
+            rf = rows[fit]
+            segs[rf] = gp[fit, 2:2 + GA_K].astype(np.int32)
+            nseg[rf] = gn[fit]
+            nseg[rows[~fit]] = -1
+        done = (sc_it == last_sc[active]) | (w_eff == maxw)
+        last_sc[active] = sc_it
+        w2[active] = w_eff << 1
+        it += 1
+        cont = (~done) & (it < 3) & (sc_it < truesc[active] - a_)
+        active = active[cont]
+
+    ok = nseg >= 0
+    nseg = np.maximum(nseg, 0)
+
+    # NM/MD classification uses the PRE-squeeze cigar (the generator path
+    # computes NM/MD before squeezing edge deletions)
+    pure_m = (nseg == 1) & ((segs[:, 0] & 3) == 0) & ok
+    need = ~pure_m | (nm_dev > MM_K)
+    win_row = np.full(N, -1, np.int32)
+    qh = th = None
+    nr = np.flatnonzero(need)
+    if nr.size:
+        qhj, thj = _gather_rows(qDj, tDj, put(nr.astype(np.int64)))
+        qh = qhj.cpu().numpy()
+        th = thj.cpu().numpy()
+        win_row[nr] = np.arange(nr.size, dtype=np.int32)
+    nm_in = np.where(pure_m & (nm_dev <= MM_K), nm_dev,
+                     -1).astype(np.int32)
+
+    # edge-deletion squeeze + pos/rid re-resolution, vectorized; the
+    # squeezed deletion lengths still count for NM/MD (generator parity),
+    # so they're carried separately (lead_d/trail_d)
+    pos = pos0.copy()
+    lead_d = np.zeros(N, np.int32)
+    trail_d = np.zeros(N, np.int32)
+    lead = (nseg > 0) & ((segs[:, 0] & 3) == 2)
+    if lead.any():
+        lr = np.flatnonzero(lead)
+        lead_d[lr] = segs[lr, 0] >> 2
+        pos[lr] += segs[lr, 0] >> 2
+        segs[lr, :-1] = segs[lr, 1:]
+        segs[lr, -1] = 0
+        nseg[lr] -= 1
+        # the squeeze can move pos past a contig boundary: re-resolve rid
+        # from the adjusted position (finalize.reg2aln_g resolves rid
+        # after the squeeze)
+        rid[lr] = np.searchsorted(offs, pos[lr], side="right") - 1
+    last_i = np.maximum(nseg - 1, 0)
+    tl = (nseg > 0) & ((segs[np.arange(N), last_i] & 3) == 2)
+    if tl.any():
+        tr = np.flatnonzero(tl)
+        trail_d[tr] = segs[tr, last_i[tr]] >> 2
+        nseg[tr] -= 1
+    p1 = pos - offs[rid] + 1
+
+    clip5 = np.where(rev, L - qe, qb).astype(np.int32)
+    clip3 = np.where(rev, qb, L - qe).astype(np.int32)
+    # reference span of the POST-squeeze cigar (aln2sam's _ref_len; TLEN)
+    reflen = rlen - lead_d - trail_d
+    return dict(ok=ok, segs=segs, nseg=nseg, lead_d=lead_d,
+                trail_d=trail_d, p1=p1, rid=rid, rev=rev, clip5=clip5,
+                clip3=clip3, nm_in=nm_in, mm_pos=mm_pos, mm_let=mm_let,
+                lq=lq, rlen=rlen, win_row=win_row, qh=qh, th=th,
+                reflen=reflen)
+
+
+def emit_flat(aligner, names, seqs, quals, other, core: dict,
+              rec: dict) -> str:
+    """Render the full output text: flat records (per-record columns in
+    `rec`: b/lane/flag/mapq/score/xs/rnext/pnext/tlen/alt_lo/alt_hi,
+    ascending rec b; per-lane cigar/NM columns in `core` cover records
+    AND their XA alternate lanes) interleaved with pre-rendered `other`
+    row text.  The native emitter renders everything; the Python emitter
+    takes over only when it reports an MD-buffer overflow."""
+    text = _emit_native(aligner, names, seqs, quals, other, core, rec)
+    if text is not None:
+        return text
+    return _emit_py(aligner, names, seqs, quals, other, core, rec)
+
+
+def _lane_cigar(core, i):
+    return [(int(v) & 3, int(v) >> 2)
+            for v in core["segs"][i, : int(core["nseg"][i])]]
+
+
+def _lane_cigar_str(core, i):
+    cs = "".join(f"{ln}{CIGAR_OPS[op]}" for op, ln in _lane_cigar(core, i))
+    c5, c3 = int(core["clip5"][i]), int(core["clip3"][i])
+    if c5:
+        cs = f"{c5}S" + cs
+    if c3:
+        cs = cs + f"{c3}S"
+    return cs
+
+
+def _lane_nm_md(core, i, want_md: bool):
+    if core["nm_in"][i] >= 0:
+        nm_i = int(core["nm_in"][i])
+        if not want_md:
+            return nm_i, ""
+        parts = []
+        prev = 0
+        for c, t in zip(core["mm_pos"][i, :nm_i], core["mm_let"][i, :nm_i]):
+            parts.append(str(int(c) - prev))
+            parts.append(MD_CHARS[int(t)])
+            prev = int(c) + 1
+        parts.append(str(int(core["lq"][i]) - prev))
+        return nm_i, "".join(parts)
+    w_i = int(core["win_row"][i])
+    full = ([(2, int(core["lead_d"][i]))] if core["lead_d"][i] else []) \
+        + _lane_cigar(core, i) \
+        + ([(2, int(core["trail_d"][i]))] if core["trail_d"][i] else [])
+    nm_i, md_i = cigar_nm_md(core["qh"][w_i, : core["lq"][i]],
+                             core["th"][w_i, : core["rlen"][i]], full)
+    return nm_i, md_i if want_md else ""
+
+
+def _emit_py(aligner, names, seqs, quals, other, core, rec) -> str:
+    idx = aligner.idx
+    cnames = [c.name for c in idx.contigs]
+    rows = [other[b] or "" for b in range(len(other))]
+    for r in range(rec["b"].size):
+        b = int(rec["b"][r])
+        i = int(rec["lane"][r])
+        nm_i, md_i = _lane_nm_md(core, i, True)
+        cs = _lane_cigar_str(core, i)
+        cid = int(core["rid"][i])
+        if core["rev"][i]:
+            seq = seqs[b].translate(finalize.REVCOMP_TRANS)[::-1]
+            qual = quals[b][::-1] if quals[b] else "*"
+        else:
+            seq = seqs[b]
+            qual = quals[b] or "*"
+        nr = int(rec["rnext"][r])
+        rnext_s = "*" if nr == -1 else ("=" if nr == -2 else cnames[nr])
+        xa = ""
+        if rec["alt_hi"][r] > rec["alt_lo"][r]:
+            parts = []
+            for a in range(int(rec["alt_lo"][r]), int(rec["alt_hi"][r])):
+                nm_a, _ = _lane_nm_md(core, a, False)
+                strand = "-" if core["rev"][a] else "+"
+                parts.append(f"{cnames[int(core['rid'][a])]},{strand}"
+                             f"{int(core['p1'][a])},"
+                             f"{_lane_cigar_str(core, a)},{nm_a};")
+            xa = "\tXA:Z:" + "".join(parts)
+        rows[b] = (f"{names[b]}\t{int(rec['flag'][r])}\t{cnames[cid]}\t"
+                   f"{int(core['p1'][i])}\t{int(rec['mapq'][r])}\t"
+                   f"{cs}\t{rnext_s}\t{int(rec['pnext'][r])}\t"
+                   f"{int(rec['tlen'][r])}\t{seq}\t{qual}\t"
+                   f"NM:i:{int(nm_i)}\tMD:Z:{md_i}\t"
+                   f"AS:i:{int(rec['score'][r])}\t"
+                   f"XS:i:{int(rec['xs'][r])}{xa}\n")
+    return "".join(rows)
+
+
+def _concat_strs(strs):
+    """Concatenate strings into (bytes, int64 offsets[len+1])."""
+    enc = [s.encode() for s in strs]
+    off = np.zeros(len(enc) + 1, np.int64)
+    if enc:
+        off[1:] = np.cumsum([len(e) for e in enc])
+    return b"".join(enc), off
+
+
+def _emit_native(aligner, names, seqs, quals, other, core, rec
+                 ) -> str | None:
+    """One native call assembles every flat record's line (NM/MD, cigar
+    strings, XA alternates, revcomp, field formatting) and splices the
+    pre-rendered non-flat rows in row order (native/samemit.cpp)."""
+    import ctypes
+
+    lib = load_native()
+    if lib is None:
+        raise RuntimeError("libtpubwa.so (tpubwa/native) failed to build "
+                           "or load; the SAM emitter needs it")
+    B = len(other)
+    NL = core["rid"].size
+    NR = rec["b"].size
+    c = ctypes
+    u8p = c.POINTER(c.c_uint8)
+
+    def bptr(buf: bytes):
+        return c.cast(c.c_char_p(buf), u8p)
+
+    i32p = c.POINTER(c.c_int32)
+    i64p = c.POINTER(c.c_int64)
+    i8p = c.POINTER(c.c_int8)
+
+    name_buf, name_off = _concat_strs(names)
+    seq_buf, seq_off = _concat_strs(seqs)
+    qual_buf, qual_off = _concat_strs([q or "" for q in quals])
+    other_buf, other_off = _concat_strs([t or "" for t in other])
+    cname_buf, cname_off = _concat_strs(
+        [ct.name for ct in aligner.idx.contigs])
+
+    holds = []  # keep converted arrays alive through the call
+
+    def A(arr, dtype, pt):
+        a = np.ascontiguousarray(arr, dtype=dtype)
+        holds.append(a)
+        return a.ctypes.data_as(pt)
+
+    qh, th = core["qh"], core["th"]
+    if qh is None:
+        qh = np.zeros((1, QPAD), np.int8)
+        th = np.zeros((1, TWIN), np.int8)
+    cap = (len(other_buf) + len(name_buf) + 2 * len(seq_buf)
+           + len(qual_buf) + NR * 160 + NL * 48 + 4096)
+    outb = np.empty(cap, np.uint8)
+    args = [
+        c.c_int64(B),
+        bptr(other_buf), A(other_off, np.int64, i64p),
+        bptr(name_buf), A(name_off, np.int64, i64p),
+        bptr(seq_buf), A(seq_off, np.int64, i64p),
+        bptr(qual_buf), A(qual_off, np.int64, i64p),
+        bptr(cname_buf), A(cname_off, np.int64, i64p),
+        c.c_int64(NL),
+        A(core["rev"], np.uint8, u8p), A(core["rid"], np.int32, i32p),
+        A(core["p1"], np.int64, i64p),
+        A(core["clip5"], np.int32, i32p), A(core["clip3"], np.int32, i32p),
+        A(core["nseg"], np.int32, i32p), A(core["segs"], np.int32, i32p),
+        c.c_int64(GA_K),
+        A(core["lead_d"], np.int32, i32p),
+        A(core["trail_d"], np.int32, i32p),
+        A(core["nm_in"], np.int32, i32p),
+        A(core["mm_pos"], np.uint8, u8p), A(core["mm_let"], np.uint8, u8p),
+        c.c_int64(MM_K),
+        A(core["lq"], np.int32, i32p), A(core["rlen"], np.int32, i32p),
+        A(core["win_row"], np.int32, i32p),
+        A(qh, np.int8, i8p), A(th, np.int8, i8p),
+        c.c_int64(QPAD), c.c_int64(TWIN),
+        c.c_int64(NR),
+        A(rec["b"], np.int32, i32p), A(rec["lane"], np.int32, i32p),
+        A(rec["flag"], np.int32, i32p), A(rec["mapq"], np.int32, i32p),
+        A(rec["score"], np.int32, i32p), A(rec["xs"], np.int32, i32p),
+        A(rec["rnext"], np.int32, i32p), A(rec["pnext"], np.int64, i64p),
+        A(rec["tlen"], np.int64, i64p),
+        A(rec["alt_lo"], np.int32, i32p), A(rec["alt_hi"], np.int32, i32p),
+        outb.ctypes.data_as(u8p), c.c_int64(cap),
+    ]
+    ret = lib.sam_emit_se(*args)
+    if ret < 0:   # MD buffer overflow sentinel -> Python emitter
+        return None
+    if ret > cap:
+        outb = np.empty(ret, np.uint8)
+        args[-2] = outb.ctypes.data_as(u8p)
+        args[-1] = c.c_int64(ret)
+        ret = lib.sam_emit_se(*args)
+    return outb[:ret].tobytes().decode()
+
+
+def hash64_vec(key: np.ndarray) -> np.ndarray:
+    """finalize.hash_64 (Wang 64-bit mix), vectorized on uint64."""
+    u = np.uint64
+    k = key.astype(np.uint64)
+    k = k + ~(k << u(32))
+    k ^= k >> u(22)
+    k = k + ~(k << u(13))
+    k ^= k >> u(8)
+    k = k + (k << u(3))
+    k ^= k >> u(15)
+    k = k + ~(k << u(27))
+    k ^= k >> u(31)
+    return k
+
+
+def classify_multi(opt: MemOptions, fields: dict, bounds: np.ndarray,
+                   rows: np.ndarray, read_id0: int, l_pac: int):
+    """Columnar sort_dedup + mark_primary for reads with >= 2 regions —
+    the single-primary fast case (every non-primary region shadowed by
+    the primary: bwa's z-list stays [0]).
+
+    Exact-semantics subset: reads whose region geometry could trigger
+    sort_dedup's redundancy/patch inner loop, or that produce a second
+    primary (supplementary alignments), or whose primary/XA lanes are not
+    flat-eligible, are returned as fallback for the generator path.
+
+    Returns a dict of per-read columns over `rows`:
+      good   : handled here (record or unmapped)
+      unmap  : good reads whose primary score < T
+      prim_j : primary's region row in `fields` (valid where good)
+      sub, sub_n : mark_primary outputs for the MAPQ formula
+      alt_j  : flattened XA alternate region rows (reads in `rows` order,
+               gen_xa order within read), alt_cnt per read
+    """
+    mcg = opt.max_chain_gap
+    cnts = (bounds[rows + 1] - bounds[rows]).astype(np.int64)
+    tot = int(cnts.sum())
+    starts = bounds[rows].astype(np.int64)
+    base = np.cumsum(cnts) - cnts
+    offs_in = np.arange(tot, dtype=np.int64) - np.repeat(base, cnts)
+    reg_j = np.repeat(starts, cnts) + offs_in
+    grp = np.repeat(np.arange(rows.size, dtype=np.int64), cnts)
+    sc = fields["score"][reg_j].astype(np.int64)
+    rb = fields["rb"][reg_j].astype(np.int64)
+    re_ = fields["re"][reg_j].astype(np.int64)
+    qb = fields["qb"][reg_j].astype(np.int64)
+    qe = fields["qe"][reg_j].astype(np.int64)
+    rid = fields["rid"][reg_j].astype(np.int64)
+
+    bad = np.zeros(rows.size, bool)
+
+    # --- 1. would sort_dedup's redundancy/patch loop run? (regions
+    # adjacent in (read, re) order closer than max_chain_gap) ---
+    o1 = np.lexsort((re_, grp))
+    adj = grp[o1][1:] == grp[o1][:-1]
+    trig = adj & (rid[o1][1:] == rid[o1][:-1]) & (
+        rb[o1][1:] < re_[o1][:-1] + mcg)
+    bad[grp[o1][1:][trig]] = True
+
+    # --- 2. final sort (-score, rb, qb) + exact-duplicate drop ---
+    o2 = np.lexsort((qb, rb, -sc, grp))
+    g2, s2 = grp[o2], sc[o2]
+    r2, q2 = rb[o2], qb[o2]
+    dup = np.zeros(tot, bool)
+    dup[1:] = ((g2[1:] == g2[:-1]) & (s2[1:] == s2[:-1])
+               & (r2[1:] == r2[:-1]) & (q2[1:] == q2[:-1]))
+    keep = ~dup
+    k2 = keep.astype(np.int64)
+    csum = np.cumsum(k2)
+    first = np.zeros(tot, bool)
+    first[0] = True
+    first[1:] = g2[1:] != g2[:-1]
+    seg_base = np.maximum.accumulate(np.where(first, csum - k2, -1))
+    rank = csum - k2 - seg_base           # dedup-compacted index i
+
+    # --- 3. mark_primary order: (-score, hash_64(read_id + i)) ---
+    h = hash64_vec(read_id0 + rows[g2] + rank)
+    kidx = np.flatnonzero(keep)
+    g3s, s3s, h3s = g2[kidx], s2[kidx], h[kidx]
+    o3 = np.lexsort((h3s, -s3s, g3s))
+    gk = g3s[o3]
+    pick = kidx[o3]                        # rows of o2 order
+    j3 = reg_j[o2][pick]
+    sc3 = s2[pick]
+    qb3 = qb[o2][pick]
+    qe3 = qe[o2][pick]
+    rb3 = rb[o2][pick]
+    re3 = re_[o2][pick]
+
+    firstk = np.zeros(gk.size, bool)
+    firstk[0] = True
+    firstk[1:] = gk[1:] != gk[:-1]
+    seg_id = np.cumsum(firstk) - 1
+    prim_pos = np.flatnonzero(firstk)
+    P_sc = sc3[prim_pos][seg_id]
+    P_qb = qb3[prim_pos][seg_id]
+    P_qe = qe3[prim_pos][seg_id]
+
+    ov = np.minimum(qe3, P_qe) - np.maximum(qb3, P_qb)
+    min_l = np.minimum(qe3 - qb3, P_qe - P_qb)
+    shadowed = (~firstk) & (ov > 0) & (ov >= min_l * opt.mask_level)
+    unshadowed = (~firstk) & ~shadowed
+    bad[gk[unshadowed]] = True             # second primary -> generators
+
+    tmp = max(opt.a + opt.b, opt.o_del + opt.e_del,
+              opt.o_ins + opt.e_ins)
+    sub = np.maximum.reduceat(np.where(shadowed, sc3, 0), prim_pos)
+    sub_n = np.add.reduceat(
+        (shadowed & (P_sc - sc3 <= tmp)).astype(np.int64), prim_pos)
+
+    # --- XA eligibility (gen_xa_g: ratio filter, then count cap) ---
+    xa_flag = shadowed & (sc3 >= P_sc * opt.XA_drop_ratio)
+    cnt_xa = np.add.reduceat(xa_flag.astype(np.int64), prim_pos)
+    xa_ok = cnt_xa <= opt.max_XA_hits
+    xa_use = xa_flag & xa_ok[seg_id]
+
+    # --- flat geometry for every lane this path would emit ---
+    lq3 = qe3 - qb3
+    rl3 = re3 - rb3
+    geom = ((lq3 > 0) & (rl3 > 0) & (lq3 <= QPAD) & (rl3 <= TWIN)
+            & ~((rb3 < l_pac) & (l_pac < re3)))
+    need = firstk | xa_use
+    badgeom = need & ~geom
+    bad[gk[badgeom]] = True
+
+    good = ~bad
+    # gen_xa runs DP for alternates even when the read ends up unmapped;
+    # results are discarded, so the unmapped-fast case needs no lanes
+    unmap = good & (sc3[prim_pos] < opt.T)
+    alt_rows = np.flatnonzero(xa_use & good[gk] & ~unmap[gk])
+    alt_j = j3[alt_rows]
+    alt_cnt = np.zeros(rows.size, np.int64)
+    if alt_rows.size:
+        ids, cc = np.unique(gk[alt_rows], return_counts=True)
+        alt_cnt[ids] = cc
+    return dict(good=good, unmap=unmap, prim_j=j3[prim_pos],
+                sub=sub, sub_n=sub_n, alt_j=alt_j, alt_cnt=alt_cnt)
+
+
+def se_text_batch(aligner, batch, read_id0: int, fields: dict,
+                  bounds: np.ndarray, codes_dev=None) -> str:
+    """SAM text for a ReadBatch from flat region arrays (fields/bounds as
+    returned by flatext.finalize_fields).  codes_dev: the device-resident
+    read batch from seeding (re-uploaded if absent).
+
+    Three tiers: single-region reads (columnar), multi-region reads in
+    the single-primary fast case (columnar, with XS/XA from the same
+    flat_core lanes — the repeat-genome common case), and a generator
+    tier for everything else; all byte-identical to the generator
+    pipeline."""
+    opt: MemOptions = aligner.opt
+    idx = aligner.idx
+    l_pac = idx.l_pac
+    B = batch.n
+    lens = np.asarray(batch.lens[:B], dtype=np.int64)
+    cnt = np.diff(bounds)
+    j0 = bounds[:-1]
+    j0s = np.minimum(j0, max(len(fields["score"]) - 1, 0))
+    first_score = np.where(cnt > 0, fields["score"][j0s], -1)
+
+    simple = cnt == 1
+    unmapped = (cnt == 0) | (simple & (first_score < opt.T))
+
+    # geometric eligibility of the flat path for simple reads
+    s_rows = np.flatnonzero(simple & (first_score >= opt.T))
+    if s_rows.size:
+        j = j0[s_rows]
+        rb_, re_, qb_, qe_ = (fields["rb"][j], fields["re"][j],
+                              fields["qb"][j], fields["qe"][j])
+        lq_, rlen_ = qe_ - qb_, re_ - rb_
+        ok = ((lq_ > 0) & (rlen_ > 0) & (lq_ <= QPAD) & (rlen_ <= TWIN)
+              & ~((rb_ < l_pac) & (l_pac < re_)))
+        flat_rows = s_rows[ok]
+    else:
+        flat_rows = s_rows
+
+    # multi-region reads: columnar dedup/mark fast case
+    multi_rows = np.flatnonzero(cnt >= 2)
+    mres = None
+    m_rec = np.array([], np.int64)     # reads emitting a flat record
+    if multi_rows.size:
+        mres = classify_multi(opt, fields, bounds, multi_rows, read_id0,
+                              l_pac)
+        m_unmap = multi_rows[mres["good"] & mres["unmap"]]
+        m_rec = multi_rows[mres["good"] & ~mres["unmap"]]
+        m_bad = multi_rows[~mres["good"]]
+        unmapped_multi = m_unmap
+    else:
+        unmapped_multi = np.array([], np.int64)
+        m_bad = np.array([], np.int64)
+
+    out: list[str] = [""] * B
+
+    # ---------------------------------------------------- unmapped ----
+    for b in np.concatenate([np.flatnonzero(unmapped), unmapped_multi]):
+        b = int(b)
+        q = batch.quals[b] or "*"
+        out[b] = (f"{batch.names[b]}\t4\t*\t0\t0\t*\t*\t0\t0\t"
+                  f"{batch.seqs[b]}\t{q}\n")
+
+    # ------------------------------------------ lanes -> flat core ----
+    if codes_dev is None:
+        codes_dev = aligner._put(np.asarray(batch.codes, np.int32))
+    N1 = flat_rows.size
+    if mres is not None and m_rec.size:
+        sel = mres["good"] & ~mres["unmap"]
+        pj = mres["prim_j"][sel]
+        m_sub = mres["sub"][sel]
+        m_sub_n = mres["sub_n"][sel]
+        m_alt_cnt = mres["alt_cnt"][sel]
+        alt_j = mres["alt_j"]
+    else:
+        pj = np.array([], np.int64)
+        m_sub = m_sub_n = m_alt_cnt = np.array([], np.int64)
+        alt_j = np.array([], np.int64)
+    N2 = pj.size
+    N3 = alt_j.size
+    NL = N1 + N2 + N3
+    gen_rows = [int(b) for b in m_bad]
+    if NL:
+        j_lanes = np.concatenate(
+            [j0[flat_rows], pj, alt_j]).astype(np.int64)
+        alt_read = np.repeat(m_rec, m_alt_cnt) if N3 else \
+            np.array([], np.int64)
+        b_lanes = np.concatenate([flat_rows, m_rec, alt_read]
+                                 ).astype(np.int64)
+        rb = fields["rb"][j_lanes].astype(np.int64)
+        re = fields["re"][j_lanes].astype(np.int64)
+        qb = fields["qb"][j_lanes].astype(np.int64)
+        qe = fields["qe"][j_lanes].astype(np.int64)
+        truesc = fields["truesc"][j_lanes].astype(np.int64)
+        aw = fields["w"][j_lanes].astype(np.int64)
+        core = flat_core(aligner, codes_dev, b_lanes, lens[b_lanes], rb,
+                         re, qb, qe, truesc, aw)
+
+        # GA cigar-pack overflow: fail the whole READ to the generators
+        okl = core["ok"]
+        alt_base = N1 + N2 + np.concatenate(
+            [[0], np.cumsum(m_alt_cnt)])[:-1] if N2 else np.array([], int)
+        rec_ok = np.ones(N1 + N2, bool)
+        rec_ok[:N1] = okl[:N1]
+        for k in range(N2):
+            lo, hi = int(alt_base[k]), int(alt_base[k] + m_alt_cnt[k])
+            rec_ok[N1 + k] = okl[N1 + k] and bool(okl[lo:hi].all())
+        # records (ascending output row b)
+        rec_b = np.concatenate([flat_rows, m_rec])
+        rec_lane = np.arange(N1 + N2, dtype=np.int64)
+        score_l = fields["score"][j_lanes].astype(np.int64)
+        frac_l = fields["frac_rep"][j_lanes]
+        sub_col = np.concatenate([np.zeros(N1, np.int64), m_sub])
+        sub_n_col = np.concatenate([np.zeros(N1, np.int64), m_sub_n])
+        mapq = mapq_se_vec(
+            opt, core["lq"][: N1 + N2], core["rlen"][: N1 + N2],
+            score_l[: N1 + N2], frac_l[: N1 + N2], sub_col,
+            np.zeros(N1 + N2, np.int64), sub_n_col)
+        alt_lo = np.zeros(N1 + N2, np.int64)
+        alt_hi = np.zeros(N1 + N2, np.int64)
+        if N2:
+            alt_lo[N1:] = alt_base
+            alt_hi[N1:] = alt_base + m_alt_cnt
+        bad_rec = np.flatnonzero(~rec_ok)
+        gen_rows.extend(int(rec_b[r]) for r in bad_rec)
+        keep_r = rec_ok
+        order = np.argsort(rec_b[keep_r], kind="stable")
+        rec = dict(
+            b=rec_b[keep_r][order],
+            lane=rec_lane[keep_r][order],
+            flag=np.where(core["rev"][: N1 + N2][keep_r][order], 16,
+                          0).astype(np.int32),
+            mapq=mapq[keep_r][order],
+            score=score_l[: N1 + N2][keep_r][order],
+            xs=sub_col[keep_r][order],
+            rnext=np.full(int(keep_r.sum()), -1, np.int32),
+            pnext=np.zeros(int(keep_r.sum()), np.int64),
+            tlen=np.zeros(int(keep_r.sum()), np.int64),
+            alt_lo=alt_lo[keep_r][order],
+            alt_hi=alt_hi[keep_r][order])
+    else:
+        core = rec = None
+
+    # ------------------------------------------- generator fallback ----
+    flat_set = np.zeros(B, bool)
+    flat_set[flat_rows] = True
+    flat_set[m_rec] = True
+    if unmapped_multi.size:
+        flat_set[unmapped_multi] = True
+    complex_rows = np.flatnonzero(~unmapped & ~flat_set)
+    gen_rows.extend(int(b) for b in complex_rows)
+    gen_rows = sorted(set(int(b) for b in gen_rows))
+    if gen_rows:
+        gens = [
+            finalize.se_records_g(
+                opt, idx, batch.names[b], batch.seqs[b], batch.quals[b],
+                batch.codes[b, : batch.lens[b]],
+                _alnregs_for(fields, bounds, int(b)), read_id0 + int(b))
+            for b in gen_rows
+        ]
+        for b, recs in zip(gen_rows,
+                           drive_rounds(gens, aligner.ga_exec)):
+            out[b] = "".join(r.line() + "\n" for r in recs)
+
+    if rec is None or rec["b"].size == 0:
+        return "".join(out)
+    return emit_flat(aligner, batch.names[:B], batch.seqs[:B],
+                     batch.quals[:B], out, core, rec)
+
+
+def _alnregs_for(fields: dict, bounds: np.ndarray, b: int):
+    """Materialize AlnReg objects for one read (complex-path fallback)."""
+    regs = []
+    for i in range(int(bounds[b]), int(bounds[b + 1])):
+        regs.append(AlnReg(
+            rb=int(fields["rb"][i]), re=int(fields["re"][i]),
+            qb=int(fields["qb"][i]), qe=int(fields["qe"][i]),
+            rid=int(fields["rid"][i]), score=int(fields["score"][i]),
+            truesc=int(fields["truesc"][i]), w=int(fields["w"][i]),
+            seedcov=int(fields["seedcov"][i]),
+            seedlen0=int(fields["seedlen0"][i]),
+            frac_rep=float(fields["frac_rep"][i])))
+    return regs

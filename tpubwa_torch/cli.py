@@ -1,0 +1,99 @@
+"""Command-line interface of the PyTorch port: ``tpu-bwa-torch index|mem``.
+
+  tpu-bwa-torch index <ref.fa>
+  tpu-bwa-torch mem [--device cuda] [-k minSeedLen] <ref.fa> reads.fq > out.sam
+
+``mem`` runs on ``--device`` (default ``cuda``; it fails when no GPU is
+visible — pass ``--device cpu`` to run on the CPU).  The index format is
+the JAX package's (``tpubwa.index.fmindex``).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import tpubwa_torch
+
+
+def cmd_index(args) -> int:
+    from tpubwa.index.fmindex import FMIndex
+
+    if not os.path.exists(args.ref):
+        print(f"tpu-bwa-torch index: no such file: {args.ref}",
+              file=sys.stderr)
+        return 1
+    t0 = time.monotonic()
+    print(f"[tpu-bwa-torch] building FM-index for {args.ref}",
+          file=sys.stderr)
+    idx = FMIndex.from_fasta(args.ref)
+    idx.save(args.ref)
+    print(f"[tpu-bwa-torch] index built: l_pac={idx.l_pac} "
+          f"seq_len={idx.seq_len} contigs={len(idx.contigs)} in "
+          f"{time.monotonic() - t0:.2f}s", file=sys.stderr)
+    return 0
+
+
+def cmd_mem(args) -> int:
+    from tpubwa_torch.align.pipeline import align_fastq
+
+    for f in [args.ref, args.reads1] + ([args.reads2] if args.reads2
+                                         else []):
+        if not os.path.exists(f):
+            print(f"tpu-bwa-torch mem: no such file: {f}", file=sys.stderr)
+            return 1
+    shard = (args.host_id, args.hosts) if args.hosts else None
+    return align_fastq(
+        ref=args.ref, fq1=args.reads1, fq2=args.reads2, out=sys.stdout,
+        device=args.device, min_seed_len=args.k, threads=args.t,
+        batch_reads=args.batch, preset=args.preset, chunk_dir=args.chunks,
+        sa_sample_shift=args.sa_shift, cmdline=" ".join(sys.argv),
+        shard=shard)
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="tpu-bwa-torch",
+        description="short-read aligner (PyTorch/CUDA port of tpu-bwa)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pi = sub.add_parser("index", help="build FM-index for a FASTA reference")
+    pi.add_argument("ref")
+    pi.set_defaults(fn=cmd_index)
+
+    pm = sub.add_parser("mem", help="align FASTQ reads, write SAM to stdout")
+    pm.add_argument("--device", default="cuda",
+                    help="torch device to align on (default: cuda)")
+    pm.add_argument("-t", type=int, default=1,
+                    help="host worker threads (only 1 is ported)")
+    pm.add_argument("-k", type=int, default=19, help="minimum seed length")
+    pm.add_argument("--batch", type=int, default=None,
+                    help="reads per device batch")
+    pm.add_argument("--preset", default=None,
+                    choices=["cpu-dev", "v5e-1", "v5e-4", "v5e-16"],
+                    help="batch-size preset (presets with a device mesh are "
+                         "not ported)")
+    pm.add_argument("--chunks", default=None, metavar="DIR",
+                    help="restartable chunked output (not ported)")
+    pm.add_argument("--sa-shift", type=int, default=0, metavar="S",
+                    help="sampled-SA serving (not ported)")
+    pm.add_argument("--hosts", type=int, default=None, metavar="N",
+                    help="multi-host scale-out (not ported)")
+    pm.add_argument("--host-id", type=int, default=0, metavar="H",
+                    help="this process's id in [0, --hosts)")
+    pm.add_argument("ref")
+    pm.add_argument("reads1")
+    pm.add_argument("reads2", nargs="?", default=None,
+                    help="second reads file (paired ends: not ported)")
+    pm.set_defaults(fn=cmd_mem)
+
+    pv = sub.add_parser("version")
+    pv.set_defaults(fn=lambda a: (print(tpubwa_torch.__version__), 0)[1])
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

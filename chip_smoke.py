@@ -7,24 +7,39 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (any failure exits non-zero):
 
-1. Print the card's name and power limit; build the extension kernel
-   (nvcc, sm_90a) and the native host library, with their build times.
-2. Hold the kernel against its plain PyTorch version on the card, exact on
-   all six fields: random jobs at J=8192, Q=192, T=768, and the real left
-   and right core inputs captured from the first batch of phase 4.
+1. Print the card's name and power limit; build the three kernels (nvcc,
+   sm_90a, one process per source, all started together) and the native
+   host library, with build times and ptxas register/spill lines.
+2. Hold each kernel against its plain PyTorch version on the card, exact
+   on every field: K1 (extend.cu) and K1b (extend_b.cu) on random jobs at
+   J=8192, Q=192, T=768; K4 (localsw.cu) on random rescue jobs at J=4096,
+   Q=192, T=1024 and T=256.
 3. The golden fixture of tests/test_golden_sam.py through the port on the
-   card must equal tests/golden/se.sam byte for byte.
-4. A 4.6 Mb random genome (seed 42), 20,000 x 150 bp reads at 1% error
-   (seed 7), batch 8192: one primary per read, >= 97% mapped, >= 92%
-   within 50 bp of the simulated position.  The launch counts of this run
-   show the main path went through the kernel; a second, warm pass gives
-   reads/s and the phase table.
+   card must equal tests/golden/se.sam, and its pairs tests/golden/pe.sam
+   under both extension layouts (t = K1, b = K1b), byte for byte.
+4. SE: a 4.6 Mb random genome (seed 42), 20,000 x 150 bp reads at 1%
+   error (seed 7), batch 8192: one primary per read, >= 97% mapped,
+   >= 92% within 50 bp of the simulated position.  The launch counts of
+   this run show the main path went through K1; its first left and right
+   core inputs are captured and K1 and K1b are held to the plain version
+   on them.  A warm pass gives reads/s and the phase table.
+5. PE: bench.py's chr21-style repeat genome (4.6 Mb, seed 42), 10,000
+   pairs of 150 bp at 1% error (seed 7, insert 400 +- 50), batch 8192.
+   The counted run (layout t) must launch K1 and K4, give one primary per
+   end and a SAM body whose SHA-256 equals the JAX package's (pinned
+   below); its first mate-rescue round is captured and K4 is held to the
+   plain version on it.  Then a warm pass under each layout, the b pass
+   counted again for K1b: reads/s and the phase table.
+6. K1b's ablation variants (scripts/ablate_kernel_r5.py, K1c) timed at
+   that script's shapes; only the full variant is held to the plain
+   version (the others are wrong by design).
 
 The last two lines are JSON: the kernels (launches, agreement, times) and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import os
@@ -37,10 +52,24 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
-KERNEL_SRC = "tpubwa_torch/csrc/extend.cu"
-KERNEL_REPLACES = "tpubwa/ops/extend_pallas.py:211"   # _kernel_t
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "extend": ("tpubwa_torch/csrc/extend.cu",
+               "tpubwa/ops/extend_pallas.py:211"),      # _kernel_t
+    "extend_b": ("tpubwa_torch/csrc/extend_b.cu",
+                 "tpubwa/ops/extend_pallas.py:51"),     # _kernel
+    "localsw": ("tpubwa_torch/csrc/localsw.cu",
+                "tpubwa/ops/localsw.py:84"),            # localsw_batch
+}
 J_RAND, Q_RAND, T_RAND = 8192, 192, 768
+J_SW, Q_SW = 4096, 192
 REF_LEN, N_READS, BATCH = 4_600_000, 20_000, 8192
+N_PAIRS = 10_000
+# SHA-256 of the SAM body (every line not starting with "@") that the JAX
+# package writes for phase 5's fixture: tpubwa.align.pipeline.align_fastq,
+# JAX_PLATFORMS=cpu, batch_reads=8192, all 10,000 pairs
+PE_SAM_SHA256 = ("d7bdf913cc56d887f4d994bf17dc33b6"
+                 "d9088a459becf8d3e5b2a62206898f5e")
 
 
 def check(ok: bool, what: str) -> None:
@@ -56,19 +85,60 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def _sync(device: str = "cuda") -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _counters() -> dict:
+    from tpubwa_torch.ops.extend_cuda import extend_core, extend_core_b
+    from tpubwa_torch.ops.localsw_cuda import localsw_core
+
+    return {"extend": extend_core, "extend_b": extend_core_b,
+            "localsw": localsw_core}
+
+
+def reset_launches() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
 # ---------------------------------------------------------------- 1 ----
 
 def phase_build() -> None:
-    from tpubwa_torch.align.flatext import native_lib
-    from tpubwa_torch.ops import extend_cuda
+    from concurrent.futures import ThreadPoolExecutor
 
-    t = time.monotonic()
-    report = extend_cuda.build()
-    print(f"[build] extension kernel ({KERNEL_SRC}) built and loaded in "
-          f"{time.monotonic() - t:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   ptxas: {line.strip()}")
+    from tpubwa_torch.align.flatext import native_lib
+    from tpubwa_torch.ops import extend_cuda, localsw_cuda
+
+    builds = {"extend": lambda: extend_cuda.build("extend"),
+              "extend_b": lambda: extend_cuda.build("extend_b"),
+              "localsw": localsw_cuda.build}
+
+    def timed(fn):
+        t = time.monotonic()
+        report = fn()
+        return report, time.monotonic() - t
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(builds)) as ex:
+        futs = {name: ex.submit(timed, fn) for name, fn in builds.items()}
+        done = {name: f.result() for name, f in futs.items()}
+    print(f"[build] {len(builds)} kernels built in parallel in "
+          f"{time.monotonic() - t0:.2f} s")
+    for name, (report, dt) in done.items():
+        print(f"[build] {name} ({KERNELS[name][0]}) built and loaded in "
+              f"{dt:.2f} s")
+        for line in report.splitlines():
+            if ("Compiling entry" in line or "registers" in line
+                    or "spill" in line):
+                print(f"[build]   ptxas: {line.strip()}")
     t = time.monotonic()
     native_lib()
     print(f"[build] native host library ready in "
@@ -112,6 +182,42 @@ def random_jobs(seed: int, J: int, Q: int, T: int) -> tuple:
             bonus), kw
 
 
+def rescue_jobs(seed: int, J: int, Q: int, T: int) -> tuple:
+    """Mate-rescue jobs as matesw_gen makes them: a 150 bp mate against a
+    window holding a mutated copy of it (or not), minsc = min_seed_len *
+    a; a third of the lanes are reverse passes with endsc = a score.
+    Empty lanes and N codes included."""
+    from tpubwa.config import MemOptions
+
+    rng = np.random.default_rng(seed)
+    opt = MemOptions()
+    target = rng.integers(0, 4, (J, T)).astype(np.int32)
+    query = np.full((J, Q), 4, np.int32)
+    qlen = np.minimum(rng.choice([150, 150, 150, 101, Q], J), Q)
+    tlen = rng.integers(T // 2, T + 1, J)
+    for r in range(J):
+        if r % 5:
+            off = int(rng.integers(0, max(tlen[r] - qlen[r], 1)))
+            q = target[r, off:off + qlen[r]].copy()
+            mut = rng.random(q.size) < rng.choice([0.01, 0.04, 0.1])
+            q[mut] = rng.integers(0, 4, int(mut.sum()))
+        else:
+            q = rng.integers(0, 4, qlen[r])
+        query[r, :q.size] = q
+        qlen[r] = q.size
+    query[rng.random((J, Q)) < 0.002] = 4
+    target[rng.random((J, T)) < 0.002] = 4
+    qlen[::97] = 0
+    tlen[::89] = 0
+    minsc = np.full(J, opt.min_seed_len * opt.a, np.int32)
+    endsc = np.where(np.arange(J) % 3 == 0, rng.integers(19, 151, J),
+                     1 << 30).astype(np.int32)
+    kw = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+              e_ins=opt.e_ins)
+    return (query, qlen.astype(np.int32), target, tlen.astype(np.int32),
+            opt.score_matrix(), minsc, endsc), kw
+
+
 def _cuda_ms(fn, reps: int) -> float:
     import torch
 
@@ -127,45 +233,43 @@ def _cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def compare_kernel(name: str, args: tuple, kw: dict) -> dict:
-    """Kernel vs plain version on the card, same inputs: exact equality on
-    all six fields, and both times (CUDA events)."""
+def compare(kernel: str, name: str, args: tuple, kw: dict) -> dict:
+    """Kernel vs its plain version on the card, same inputs: exact
+    equality on every field, and both times (CUDA events).  These
+    launches are not the main path's: the counters are restored."""
     import torch
 
     from tpubwa_torch.ops.extend import _extend_core
-    from tpubwa_torch.ops.extend_cuda import extend_core
+    from tpubwa_torch.ops.localsw import localsw_batch
 
+    plain = localsw_batch if kernel == "localsw" else _extend_core
+    fn = _counters()[kernel]
+    n0 = fn.launches
     dev = torch.device("cuda")
     a = tuple(torch.as_tensor(x).to(dev) for x in args)
-    got = extend_core(*a, **kw)
-    want = _extend_core(*a, **kw)
+    got = fn(*a, **kw)
+    want = plain(*a, **kw)
     torch.cuda.synchronize()
     err = 0
     for field, g, p in zip(want._fields, got, want):
         diff = int((g.to(torch.int64) - p.to(torch.int64)).abs().max()) \
             if g.numel() else 0
         check(g.shape == p.shape and diff == 0,
-              f"kernel == plain on {name}, field {field} (max |diff| "
+              f"{kernel} == plain on {name}, field {field} (max |diff| "
               f"{diff})")
         err = max(err, diff)
-    ms = _cuda_ms(lambda: extend_core(*a, **kw), reps=20)
-    plain_ms = _cuda_ms(lambda: _extend_core(*a, **kw), reps=2)
+    ms = _cuda_ms(lambda: fn(*a, **kw), reps=20)
+    plain_ms = _cuda_ms(lambda: plain(*a, **kw), reps=2)
+    fn.launches = n0
     J, Q = a[0].shape
     T = a[2].shape[1]
-    print(f"[kernel] {name}: J={J} Q={Q} T={T}: kernel == plain on all 6 "
-          f"fields (max |err| {err}); kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms")
+    print(f"[{kernel}] {name}: J={J} Q={Q} T={T}: kernel == plain on all "
+          f"{len(want)} fields (max |err| {err}); kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
 # ---------------------------------------------------------------- 3 ----
-
-def _sync(device: str) -> None:
-    import torch
-
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
 
 def phase_golden(device: str = "cuda") -> None:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -175,45 +279,59 @@ def phase_golden(device: str = "cuda") -> None:
 
     d = os.path.join(WORK, "golden")
     os.makedirs(d, exist_ok=True)
-    ref, se_fq, _, _ = _build_fixture(d)
-    buf = io.StringIO()
-    t = time.monotonic()
-    check(align_fastq(ref, se_fq, None, buf, device=device,
-                      batch_reads=64) == 0, "golden run exits 0")
-    with open(os.path.join(GOLDEN_DIR, "se.sam")) as f:
-        golden = f.read()
-    got = _strip_pg(buf.getvalue())
-    check(got == golden, f"golden SE SAM byte-identical on {device}")
-    print(f"[golden] tests/golden/se.sam reproduced byte for byte on {device} "
-          f"({len(got)} bytes, {time.monotonic() - t:.1f} s)")
+    ref, se_fq, fq1, fq2 = _build_fixture(d)
+    runs = [("se", se_fq, None, "t"), ("pe", fq1, fq2, "t"),
+            ("pe", fq1, fq2, "b")]
+    for kind, r1, r2, layout in runs:
+        buf = io.StringIO()
+        reset_launches()
+        t = time.monotonic()
+        check(align_fastq(ref, r1, r2, buf, device=device, batch_reads=64,
+                          ext_layout=layout) == 0, f"golden {kind} exits 0")
+        _sync(device)
+        n = read_launches()
+        with open(os.path.join(GOLDEN_DIR, f"{kind}.sam")) as f:
+            golden = f.read()
+        got = _strip_pg(buf.getvalue())
+        check(got == golden, f"golden {kind.upper()} SAM byte-identical on "
+              f"{device} (layout {layout})")
+        core = "extend_b" if layout == "b" else "extend"
+        check(n[core] > 0, f"golden {kind} layout {layout} launched {core}")
+        print(f"[golden] tests/golden/{kind}.sam reproduced byte for byte on "
+              f"{device}, layout {layout} ({len(got)} bytes, "
+              f"{time.monotonic() - t:.1f} s; launches {n})")
 
 
 # ---------------------------------------------------------------- 4 ----
 
+def write_fasta(path: str, codes: np.ndarray) -> None:
+    from tpubwa.index.fmindex import FMIndex
+    from tpubwa.utils.dna import decode
+
+    with open(path, "w") as f:
+        f.write(">benchref\n")
+        seq = decode(codes)
+        for i in range(0, len(seq), 80):
+            f.write(seq[i:i + 80] + "\n")
+    FMIndex.from_fasta(path).save(path)
+
+
 def realistic_fixture() -> tuple[str, str]:
     """bench.py's _ensure_fixture recipe (random genome, seed 42; reads
     seed 7), built in the checkout's build directory."""
-    from tpubwa.index.fmindex import FMIndex
     from tpubwa.io.fasta import read_fasta
     from tpubwa.utils import sim
-    from tpubwa.utils.dna import decode
 
     os.makedirs(WORK, exist_ok=True)
     fa = os.path.join(WORK, f"ref_{REF_LEN}.fa")
     fq = os.path.join(WORK, f"reads_{REF_LEN}_{N_READS}_se.fq")
     t = time.monotonic()
-    codes = np.random.default_rng(42).integers(0, 4, REF_LEN).astype(
-        np.uint8)
-    with open(fa, "w") as f:
-        f.write(">benchref\n")
-        seq = decode(codes)
-        for i in range(0, len(seq), 80):
-            f.write(seq[i:i + 80] + "\n")
-    FMIndex.from_fasta(fa).save(fa)
+    write_fasta(fa, np.random.default_rng(42).integers(0, 4, REF_LEN)
+                .astype(np.uint8))
     contigs, codes, _ = read_fasta(fa)
     sim.write_fastq(fq, sim.simulate_reads(codes, contigs, N_READS,
                                            length=150, err=0.01, seed=7))
-    print(f"[e2e] fixture: {REF_LEN} bp genome + index + {N_READS} reads "
+    print(f"[se] fixture: {REF_LEN} bp genome + index + {N_READS} reads "
           f"in {time.monotonic() - t:.1f} s")
     return fa, fq
 
@@ -234,16 +352,21 @@ def gate(text: str) -> None:
             continue
         mapped += 1
         near += abs(pos - 1 - int(name.split("_")[3])) <= 50
-    print(f"[e2e] gates: {N_READS} primaries, mapped {mapped} "
+    print(f"[se] gates: {N_READS} primaries, mapped {mapped} "
           f"({100 * mapped / N_READS:.2f}%), within 50 bp {near} "
           f"({100 * near / N_READS:.2f}%)")
     check(mapped >= 0.97 * N_READS, ">= 97% mapped")
     check(near >= 0.92 * N_READS, ">= 92% within 50 bp of the truth")
 
 
-def phase_e2e(device: str = "cuda") -> tuple[int, dict]:
-    """Returns (kernel launches in the counted run, captured core
-    inputs {"left": (args, kw), "right": (args, kw)})."""
+def print_phases(tag: str, timers) -> None:
+    for name, tot in sorted(timers.totals.items(), key=lambda kv: -kv[1]):
+        print(f"[{tag}]   {name}: {tot:.3f} s (n={timers.counts[name]})")
+
+
+def phase_se(device: str = "cuda") -> dict:
+    """Returns the captured core inputs {"left": (args, kw), "right":
+    (args, kw)} of the counted run."""
     import torch
 
     from tpubwa.config import MemOptions
@@ -267,16 +390,18 @@ def phase_e2e(device: str = "cuda") -> tuple[int, dict]:
         return extend_core(*args, **kw)
 
     aligner.ext_core = capturing_core
-    extend_core.launches = 0
     out = io.StringIO()
+    _sync(device)
+    reset_launches()
     t = time.monotonic()
     run_se_pipeline(aligner, fq, out)
     _sync(device)
     cold = time.monotonic() - t
-    launches = extend_core.launches
-    print(f"[e2e] counted run: {N_READS} reads in {cold:.2f} s (cold); "
-          f"extension kernel launches {launches}")
-    check(launches > 0, "the main path launched the extension kernel")
+    launches = read_launches()
+    print(f"[se] counted run: {N_READS} reads in {cold:.2f} s (cold); "
+          f"launches {launches}")
+    check(launches["extend"] > 0, "the SE path launched the extension "
+          "kernel")
     check(set(captured) == {"left", "right"},
           "left and right core inputs captured")
     gate(out.getvalue())
@@ -289,13 +414,163 @@ def phase_e2e(device: str = "cuda") -> tuple[int, dict]:
     run_se_pipeline(aligner, fq, out)
     _sync(device)
     warm = time.monotonic() - t
-    print(f"[e2e] warm run: {N_READS} reads in {warm:.2f} s = "
+    print(f"[se] warm run: {N_READS} reads in {warm:.2f} s = "
           f"{N_READS / warm:.1f} reads/s (batch {BATCH})")
-    for name, tot in sorted(aligner.timers.totals.items(),
-                            key=lambda kv: -kv[1]):
-        print(f"[e2e]   {name}: {tot:.3f} s "
-              f"(n={aligner.timers.counts[name]})")
-    return launches, captured
+    print_phases("se", aligner.timers)
+    return captured
+
+
+# ---------------------------------------------------------------- 5 ----
+
+def pe_fixture() -> tuple[str, str, str]:
+    """bench.py's PE chr21-style recipe (TPUBWA_BENCH_PE=1
+    TPUBWA_BENCH_STYLE=chr21), built in the checkout's build directory."""
+    from bench import _repeat_genome   # framework-free; imports numpy only
+    from tpubwa.io.fasta import read_fasta
+    from tpubwa.utils import sim
+
+    os.makedirs(WORK, exist_ok=True)
+    fa = os.path.join(WORK, f"ref_{REF_LEN}_chr21.fa")
+    fq1 = os.path.join(WORK, f"pairs_{REF_LEN}_{N_PAIRS}_1.fq")
+    fq2 = os.path.join(WORK, f"pairs_{REF_LEN}_{N_PAIRS}_2.fq")
+    t = time.monotonic()
+    write_fasta(fa, _repeat_genome(np.random.default_rng(42), REF_LEN))
+    contigs, codes, _ = read_fasta(fa)
+    r1, r2 = sim.simulate_pairs(codes, contigs, N_PAIRS, length=150,
+                                err=0.01, seed=7)
+    sim.write_fastq(fq1, r1)
+    sim.write_fastq(fq2, r2)
+    print(f"[pe] fixture: {REF_LEN} bp chr21-style genome + index + "
+          f"{N_PAIRS} pairs in {time.monotonic() - t:.1f} s")
+    return fa, fq1, fq2
+
+
+def pe_gate(text: str) -> None:
+    body = "".join(ln for ln in text.splitlines(keepends=True)
+                   if not ln.startswith("@"))
+    prim = set()
+    mapped = proper = 0
+    for line in body.splitlines():
+        f = line.split("\t")
+        flag = int(f[1])
+        if flag & 0x900:
+            continue
+        key = (f[0], flag & 0xC0)
+        check(key not in prim, f"one primary for {key}")
+        prim.add(key)
+        mapped += not flag & 4
+        proper += bool(flag & 2)
+    n = 2 * N_PAIRS
+    check(len(prim) == n, f"every end has a primary ({len(prim)} of {n})")
+    digest = hashlib.sha256(body.encode()).hexdigest()
+    print(f"[pe] gates: {n} primaries, mapped {mapped} "
+          f"({100 * mapped / n:.2f}%), proper pair {proper} "
+          f"({100 * proper / n:.2f}%); SAM body sha256 {digest}")
+    check(digest == PE_SAM_SHA256, "PE SAM body equals the JAX package's "
+          f"(sha256 {PE_SAM_SHA256})")
+
+
+def phase_pe(device: str = "cuda") -> tuple[dict, dict, tuple]:
+    """Returns (launches of the counted layout-t run, launches of the
+    layout-b pass, the first captured mate-rescue round (args, kw))."""
+    import torch
+
+    from tpubwa.config import MemOptions
+    from tpubwa.index.fmindex import FMIndex
+    from tpubwa_torch.align import pair
+    from tpubwa_torch.align.pipeline import EXT_CORES, Aligner
+
+    fa, fq1, fq2 = pe_fixture()
+    idx = FMIndex.load(fa)
+    aligner = Aligner(idx, MemOptions(batch_reads=BATCH), device=device)
+    core = pair.localsw_core
+    captured: list = []
+
+    def capturing(*args, **kw):
+        if not captured:
+            captured.append((tuple(a.clone() if torch.is_tensor(a) else a
+                                   for a in args), dict(kw)))
+        return core(*args, **kw)
+
+    pair.localsw_core = capturing
+    try:
+        out = io.StringIO()
+        _sync(device)
+        reset_launches()
+        t = time.monotonic()
+        rc = pair.align_pe_fastq(aligner, fq1, fq2, out)
+        _sync(device)
+        cold = time.monotonic() - t
+        launches = read_launches()
+    finally:
+        pair.localsw_core = core
+    check(rc == 0, "PE run exits 0")
+    print(f"[pe] counted run (layout t): {2 * N_PAIRS} reads in "
+          f"{cold:.2f} s (cold); launches {launches}")
+    check(launches["extend"] > 0, "the PE path launched K1")
+    check(launches["localsw"] > 0, "the PE path launched K4 (mate rescue)")
+    check(len(captured) == 1, "first mate-rescue round captured")
+    pe_gate(out.getvalue())
+
+    b_launches = {}
+    for layout in ("t", "b"):
+        aligner.ext_core = EXT_CORES[layout]
+        aligner.timers = type(aligner.timers)()
+        out = io.StringIO()
+        _sync(device)
+        reset_launches()
+        t = time.monotonic()
+        check(pair.align_pe_fastq(aligner, fq1, fq2, out) == 0,
+              f"PE layout {layout} exits 0")
+        _sync(device)
+        warm = time.monotonic() - t
+        n = read_launches()
+        print(f"[pe] warm run, layout {layout}: {2 * N_PAIRS} reads in "
+              f"{warm:.2f} s = {2 * N_PAIRS / warm:.1f} reads/s (batch "
+              f"{BATCH}); launches {n}")
+        print_phases("pe", aligner.timers)
+        if layout == "b":
+            check(n["extend_b"] > 0 and n["extend"] == 0,
+                  "the layout-b pass launched K1b and not K1")
+            pe_gate(out.getvalue())
+            b_launches = n
+    return launches, b_launches, captured[0]
+
+
+# ---------------------------------------------------------------- 6 ----
+
+def phase_ablation() -> dict:
+    """scripts/ablate_kernel_r5.py's seven variants on K1b at its shapes:
+    B=4096, Q=192, T=256, target = copy of the query, w=100, h0=1."""
+    import torch
+
+    from tpubwa.config import MemOptions
+    from tpubwa_torch.ops.extend import _extend_core
+    from tpubwa_torch.ops.extend_cuda import VARIANTS, extend_b_variant
+
+    B, Q, T = 4096, 192, 256
+    rng = np.random.default_rng(0)
+    q = rng.integers(0, 4, (B, Q)).astype(np.int32)
+    t = np.zeros((B, T), np.int32)
+    t[:, :min(Q, T)] = q[:, :min(Q, T)]
+    opt = MemOptions()       # a=1 b=4, gaps 6+1: the script's scores
+    dev = torch.device("cuda")
+    args = [torch.as_tensor(x, device=dev) for x in (
+        q, np.full(B, Q, np.int32), t, np.full(B, T, np.int32),
+        opt.score_matrix(), np.full(B, 100, np.int32),
+        np.full(B, 1, np.int32), np.zeros(B, np.int32))]
+    kw = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+              e_ins=opt.e_ins, zdrop=100, mat_max=opt.a)
+    got = extend_b_variant("full", *args, **kw)
+    want = _extend_core(*args, **kw)
+    torch.cuda.synchronize()
+    for field, g, p in zip(want._fields, got, want):
+        check(torch.equal(g, p), f"ablation full variant == plain, {field}")
+    times = {v: _cuda_ms(lambda v=v: extend_b_variant(v, *args, **kw),
+                         reps=10) for v in VARIANTS}
+    print("[ablate] K1b variants, B=4096 Q=192 T=256 (full == plain): "
+          + "  ".join(f"{v} {ms:.3f} ms" for v, ms in times.items()))
+    return times
 
 
 def main() -> int:
@@ -311,6 +586,7 @@ def main() -> int:
         tpubwa_torch.__file__))) == ROOT,
         f"tpubwa_torch is imported from this checkout ({ROOT})")
 
+    t_start = time.monotonic()
     card = card_line()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -319,21 +595,40 @@ def main() -> int:
 
     phase_build()
     args, kw = random_jobs(0, J_RAND, Q_RAND, T_RAND)
-    rand = compare_kernel("random jobs", args, kw)
+    res = {k: [compare(k, "random jobs", args, kw)]
+           for k in ("extend", "extend_b")}
+    res["localsw"] = [compare("localsw", f"random rescue jobs T={T}",
+                              *rescue_jobs(T, J_SW, Q_SW, T))
+                      for T in (1024, 256)]
     phase_golden()
-    launches, captured = phase_e2e()
-    real = {side: compare_kernel(f"phase-4 batch 1 {side} core", a, k)
-            for side, (a, k) in sorted(captured.items())}
+    captured = phase_se()
+    for side, (a, k) in sorted(captured.items()):
+        for kern in ("extend", "extend_b"):
+            res[kern].append(compare(kern, f"SE batch 1 {side} core", a, k))
+    pe_launches, b_launches, (sw_args, sw_kw) = phase_pe()
+    sw_real = compare("localsw", "PE batch 1 first rescue round", sw_args,
+                      sw_kw)
+    res["localsw"].append(sw_real)
+    phase_ablation()
 
     check("jax" not in sys.modules, "the port ran without importing jax")
+    print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
 
-    # one kernel: its error over every comparison, its times at the
-    # path's full wave shape (J=8192, Q=192, T=768)
+    # launches: each kernel's count in the PE run that drives it (K1 and
+    # K4 in the counted layout-t run, K1b in the layout-b pass); error
+    # over every comparison; times at the path's shapes (K1/K1b: the full
+    # wave J=8192 Q=192 T=768; K4: the PE run's first rescue round)
+    launches = dict(extend=pe_launches["extend"],
+                    extend_b=b_launches["extend_b"],
+                    localsw=pe_launches["localsw"])
+    timing = dict(extend=res["extend"][0], extend_b=res["extend_b"][0],
+                  localsw=sw_real)
     print(json.dumps({"kernels": [dict(
-        name="extend", route="cuda", source=KERNEL_SRC,
-        replaces=KERNEL_REPLACES, launches=launches,
-        max_abs_err=max(r["max_abs_err"] for r in [rand, *real.values()]),
-        ms=rand["ms"], plain_ms=rand["plain_ms"])]}))
+        name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
+        launches=launches[k],
+        max_abs_err=max(r["max_abs_err"] for r in res[k]),
+        ms=timing[k]["ms"], plain_ms=timing[k]["plain_ms"])
+        for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

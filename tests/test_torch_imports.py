@@ -1,6 +1,7 @@
 """The port runs without jax: in a fresh interpreter, importing
 ``tpubwa_torch.align.pipeline`` and ``tpubwa_torch.cli`` and aligning a
-few reads on the CPU leaves ``jax`` out of ``sys.modules``.  Also the
+few reads and a few pairs on the CPU leaves ``jax`` out of
+``sys.modules``.  Also the
 CLI's refusals: no silent CPU fallback for ``--device cuda`` without a
 card, and a clear NotImplementedError for paths outside the port."""
 import os
@@ -32,6 +33,12 @@ sim.write_fastq(d + "/r.fq", sim.simulate_reads(codes, contigs, 12, seed=2))
 rc = tpubwa_torch.cli.main(["mem", "--device", "cpu", d + "/ref.fa",
                             d + "/r.fq"])
 assert rc == 0, rc
+r1, r2 = sim.simulate_pairs(codes, contigs, 16, length=100, seed=3)
+sim.write_fastq(d + "/p1.fq", r1)
+sim.write_fastq(d + "/p2.fq", r2)
+rc = tpubwa_torch.cli.main(["mem", "--device", "cpu", "--ext-layout", "b",
+                            d + "/ref.fa", d + "/p1.fq", d + "/p2.fq"])
+assert rc == 0, rc
 print("JAX_LOADED", "jax" in sys.modules, file=sys.stderr)
 """
 
@@ -46,13 +53,18 @@ def test_port_runs_without_jax(tmp_path):
     p = _run(["-c", SCRIPT, str(tmp_path)], tmp_path)
     assert p.returncode == 0, p.stderr
     assert "JAX_LOADED False" in p.stderr
-    sam = [ln for ln in p.stdout.splitlines() if not ln.startswith("@")]
-    assert len(sam) >= 12
-    assert sum(not int(ln.split("\t")[1]) & 4 for ln in sam) >= 10
+    sam = [ln.split("\t") for ln in p.stdout.splitlines()
+           if not ln.startswith("@")]
+    se = [f for f in sam if not int(f[1]) & 1]
+    pe = [f for f in sam if int(f[1]) & 1]
+    assert len(se) >= 12
+    assert sum(not int(f[1]) & 4 for f in se) >= 10
+    assert sum(not int(f[1]) & 0x900 for f in pe) == 32
+    assert sum(int(f[1]) & 2 > 0 for f in pe) >= 24      # proper pairs
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["mem", "--device", "cpu", "REF", "R", "R"], "paired-end"),
+    (["mem", "--device", "cpu", "--hosts", "2", "REF", "R"], "--hosts"),
     (["mem", "--device", "cpu", "--chunks", "c", "REF", "R"], "--chunks"),
     (["mem", "--device", "cpu", "-t", "2", "REF", "R"], "worker pool"),
 ])

@@ -122,11 +122,16 @@ def test_seed_rows_matches_jax(setup):
                      min_seed_len=OPT.min_seed_len, split_len=OPT.split_len,
                      split_width=OPT.split_width,
                      max_mem_intv=OPT.max_mem_intv)
-    for max_occ, cap in ((OPT.max_occ, OPT.max_seeds_per_read), (3, 5)):
-        want = jax_seed_rows(jdi, sm, max_occ=max_occ, per_read_cap=cap)
+    # (max_occ, per-read cap, rows per read): the last overflows the
+    # global row buffer, whose rows past CAP are dropped
+    for max_occ, cap, rpr in ((OPT.max_occ, OPT.max_seeds_per_read, 32),
+                              (3, 5, 32), (OPT.max_occ, 64, 2)):
+        want = jax_seed_rows(jdi, sm, max_occ=max_occ, per_read_cap=cap,
+                             rows_per_read=rpr)
         got = seed_rows(tdi, Smems(*(torch.as_tensor(np.array(f))
                                      for f in sm)),
-                        max_occ=max_occ, per_read_cap=cap)
+                        max_occ=max_occ, per_read_cap=cap,
+                        rows_per_read=rpr)
         n = int(got.n)
         assert n == int(want.n) and n > 0
         np.testing.assert_array_equal(got.packed[:n].numpy(),
@@ -135,3 +140,5 @@ def test_seed_rows_matches_jax(setup):
                                       np.asarray(want.l_rep))
         np.testing.assert_array_equal(got.overflow.numpy(),
                                       np.asarray(want.overflow))
+        if rpr == 2:
+            assert n == 2 * q.shape[0]        # the buffer is full

@@ -343,6 +343,12 @@ def flat_core(aligner, codes_dev, rd, L, rb, re, qb, qe, truesc, aw):
                 reflen=reflen)
 
 
+# flat_core's per-lane columns (the PE path merges two cores by these)
+_CORE_LANE_KEYS = ("segs", "nseg", "lead_d", "trail_d", "p1", "rid",
+                   "rev", "clip5", "clip3", "nm_in", "mm_pos", "mm_let",
+                   "lq", "rlen", "win_row", "reflen")
+
+
 def emit_flat(aligner, names, seqs, quals, other, core: dict,
               rec: dict) -> str:
     """Render the full output text: flat records (per-record columns in

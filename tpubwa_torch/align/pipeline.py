@@ -1,6 +1,7 @@
-"""End-to-end single-end alignment pipeline on a torch device (port of
+"""End-to-end alignment pipeline on a torch device (port of
 ``tpubwa.align.pipeline``): FASTQ -> device seeding -> native chaining ->
-device extension waves -> native finalize -> flat SAM.
+device extension waves -> native finalize -> flat SAM; paired ends add
+pairing and mate rescue (``align/pair.py``).
 
 Phase timers keep the reference's names (SMEM / SAL / CHAIN / BSW / SAM).
 Everything on the device runs on the Aligner's explicit ``device``; the
@@ -21,7 +22,7 @@ from tpubwa.io.sam import sam_header
 from tpubwa.utils.timers import PhaseTimers
 from tpubwa_torch.align import flatext, flatsam
 from tpubwa_torch.align.cigar_batch import GABatchExecutor
-from tpubwa_torch.ops.extend_cuda import extend_core
+from tpubwa_torch.ops.extend_cuda import extend_core, extend_core_b
 from tpubwa_torch.ops.fm import DeviceIndex
 from tpubwa_torch.ops.seeds import seed_rows
 from tpubwa_torch.ops.smem_chain import collect_smems_chain
@@ -43,12 +44,21 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# the extension kernel per layout: "t" is K1 (a thread per job), "b" is
+# K1b (a warp per job); both compute the same function
+EXT_CORES = {"t": extend_core, "b": extend_core_b}
+
+
 class Aligner:
     """Holds the loaded index (host + device) and aligns read batches on
-    one torch device."""
+    one torch device.  ``ext_layout`` picks the extension kernel
+    (``EXT_CORES``); the output does not depend on it."""
 
     def __init__(self, idx: FMIndex, opt: MemOptions | None = None, *,
-                 device):
+                 device, ext_layout: str = "t"):
+        if ext_layout not in EXT_CORES:
+            raise ValueError(f"ext_layout {ext_layout!r}: choose from "
+                             f"{sorted(EXT_CORES)}")
         self.idx = idx
         self.opt = opt or MemOptions()
         if self.opt.mesh_shape:
@@ -66,7 +76,7 @@ class Aligner:
         self.contig_offsets = np.array([c.offset for c in idx.contigs],
                                        dtype=np.int64)
         self.di = DeviceIndex.from_host(idx, self.device)
-        self.ext_core = extend_core
+        self.ext_core = EXT_CORES[ext_layout]
         self.n_overflow = 0  # reads whose SMEM/seed buffers overflowed
         self.mat_dev = self._put(self.mat)
         self.ga_exec = GABatchExecutor(self.opt, put=self._put)
@@ -165,11 +175,10 @@ def align_fastq(ref: str, fq1: str, fq2: str | None, out, *, device="cuda",
                 chunk_dir: str | None = None,
                 cmdline: str = "tpu-bwa-torch mem",
                 shard: tuple[int, int] | None = None,
-                sa_sample_shift: int = 0) -> int:
-    """CLI entry: align a FASTQ against an indexed reference on `device`,
-    write SAM to `out`."""
-    if fq2 is not None:
-        raise _not_ported("paired-end alignment", "P7")
+                sa_sample_shift: int = 0, ext_layout: str = "t") -> int:
+    """CLI entry: align a FASTQ (or a pair of them) against an indexed
+    reference on `device`, write SAM to `out`.  Returns 0, or 1 when the
+    index is missing or paired FASTQs differ in read count."""
     if chunk_dir is not None or shard is not None:
         raise _not_ported("--chunks resume and --hosts sharding", "P8")
     if threads > 1:
@@ -187,21 +196,53 @@ def align_fastq(ref: str, fq1: str, fq2: str | None, out, *, device="cuda",
     if sa_sample_shift:
         opt.sa_sample_shift = int(sa_sample_shift)
     idx = FMIndex.load(ref)
-    aligner = Aligner(idx, opt, device=device)
+    aligner = Aligner(idx, opt, device=device, ext_layout=ext_layout)
     print(f"[tpu-bwa-torch] device {aligner.device} "
-          f"(batch {opt.batch_reads})", file=sys.stderr)
+          f"(batch {opt.batch_reads}, extension layout {ext_layout})",
+          file=sys.stderr)
     out.write(sam_header(idx.contigs, cmdline, tpubwa_torch.__version__))
+    if fq2 is not None:
+        from tpubwa_torch.align.pair import align_pe_fastq
+
+        return align_pe_fastq(aligner, fq1, fq2, out)
     run_se_pipeline(aligner, fq1, out)
     print(aligner.timers.report(), file=sys.stderr)
     return 0
+
+
+def run_dispatch_ahead(items, dispatch, finish) -> None:
+    """The single-thread dispatch-ahead driver of SE and PE: item N+1's
+    device seeding (``dispatch(item) -> handle``) is issued before item N
+    is finished (``finish(item, handle)`` aligns it and writes its text).
+
+    If the reader raises, the pending item is finished and written
+    first, then the error propagates."""
+    pend = None  # (item, handle)
+    it = iter(items)
+    while True:
+        try:
+            item = next(it)
+        except StopIteration:
+            break
+        except Exception:
+            if pend is not None:
+                finish(*pend)
+            raise
+        handle = dispatch(item)
+        if pend is not None:
+            finish(*pend)
+        pend = (item, handle)
+    if pend is not None:
+        finish(*pend)
 
 
 def run_se_pipeline(aligner: Aligner, fq1: str, out) -> int:
     """SE driver in the JAX package's dispatch-ahead order: batch N+1's
     seeding is issued before batch N is finished.  The chain loops check
     for DONE lanes on the host, so seeding here completes before it
-    returns and the two do not overlap yet."""
+    returns and the two do not overlap yet.  Returns the reads done."""
     opt = aligner.opt
+    n_done = 0
 
     def items():
         read_id0 = 0
@@ -209,25 +250,16 @@ def run_se_pipeline(aligner: Aligner, fq1: str, out) -> int:
             yield batch, read_id0
             read_id0 += batch.n
 
-    return _run_se_pipelined(aligner, items(), out)
+    def dispatch(item):
+        return aligner.seed_batch_dispatch(item[0].codes, item[0].lens)
 
+    def finish(item, handle) -> None:
+        nonlocal n_done
+        batch, read_id0 = item
+        out.write(aligner.align_se_text(batch, read_id0, seed_handle=handle))
+        n_done += batch.n
+        print(f"[tpu-bwa-torch] {read_id0 + batch.n} reads processed",
+              file=sys.stderr)
 
-def _run_se_pipelined(aligner: Aligner, items, out) -> int:
-    """Single-thread dispatch-ahead SE driver (see run_se_pipeline)."""
-    n_done = 0
-    pend = None  # (batch, read_id0, seed_handle)
-    for batch, read_id0 in items:
-        handle = aligner.seed_batch_dispatch(batch.codes, batch.lens)
-        if pend is not None:
-            n_done += _finish(aligner, out, *pend)
-        pend = (batch, read_id0, handle)
-    if pend is not None:
-        n_done += _finish(aligner, out, *pend)
+    run_dispatch_ahead(items(), dispatch, finish)
     return n_done
-
-
-def _finish(aligner: Aligner, out, batch, read_id0: int, handle) -> int:
-    out.write(aligner.align_se_text(batch, read_id0, seed_handle=handle))
-    print(f"[tpu-bwa-torch] {read_id0 + batch.n} reads processed",
-          file=sys.stderr)
-    return batch.n

@@ -1,11 +1,15 @@
 """Command-line interface of the PyTorch port: ``tpu-bwa-torch index|mem``.
 
   tpu-bwa-torch index <ref.fa>
-  tpu-bwa-torch mem [--device cuda] [-k minSeedLen] <ref.fa> reads.fq > out.sam
+  tpu-bwa-torch mem [--device cuda] [--ext-layout t|b] [-k minSeedLen]
+                    <ref.fa> reads.fq [mates.fq] > out.sam
 
 ``mem`` runs on ``--device`` (default ``cuda``; it fails when no GPU is
-visible — pass ``--device cpu`` to run on the CPU).  The index format is
-the JAX package's (``tpubwa.index.fmindex``).
+visible — pass ``--device cpu`` to run on the CPU).  A second reads file
+aligns paired ends.  ``--ext-layout`` picks the extension kernel: ``t``
+(one thread per job, the default) or ``b`` (one warp per job); the
+output is the same.  The index format is the JAX package's
+(``tpubwa.index.fmindex``).
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ def cmd_mem(args) -> int:
         device=args.device, min_seed_len=args.k, threads=args.t,
         batch_reads=args.batch, preset=args.preset, chunk_dir=args.chunks,
         sa_sample_shift=args.sa_shift, cmdline=" ".join(sys.argv),
-        shard=shard)
+        shard=shard, ext_layout=args.ext_layout)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -65,6 +69,9 @@ def main(argv: list[str] | None = None) -> int:
     pm = sub.add_parser("mem", help="align FASTQ reads, write SAM to stdout")
     pm.add_argument("--device", default="cuda",
                     help="torch device to align on (default: cuda)")
+    pm.add_argument("--ext-layout", default="t", choices=["t", "b"],
+                    help="extension kernel: t = a thread per job (default),"
+                         " b = a warp per job; the output is the same")
     pm.add_argument("-t", type=int, default=1,
                     help="host worker threads (only 1 is ported)")
     pm.add_argument("-k", type=int, default=19, help="minimum seed length")
@@ -85,7 +92,7 @@ def main(argv: list[str] | None = None) -> int:
     pm.add_argument("ref")
     pm.add_argument("reads1")
     pm.add_argument("reads2", nargs="?", default=None,
-                    help="second reads file (paired ends: not ported)")
+                    help="second reads file (paired ends)")
     pm.set_defaults(fn=cmd_mem)
 
     pv = sub.add_parser("version")

@@ -61,8 +61,9 @@ def seed_rows(di: DeviceIndex, sm: Smems, *, max_occ: int = 500,
     g_beg = (base[:, None] + ob).reshape(-1)                # [B*M]
 
     # owner map: scatter each live SMEM's flat id at its first slot, cummax
+    # (SMEMs starting past the CAP rows are dropped with the rest)
     flat_id = torch.arange(B * M, dtype=I32, device=dev)
-    live = (cnt2 > 0).reshape(-1)
+    live = (cnt2 > 0).reshape(-1) & (g_beg < CAP)
     dst = torch.where(live, g_beg, CAP).to(torch.int64)
     owner = torch.full((CAP + 1,), -1, dtype=I32, device=dev).scatter_reduce(
         0, dst, flat_id, "amax")[:CAP]

@@ -7,9 +7,10 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (any failure exits non-zero):
 
-1. Print the card's name and power limit; build the three kernels (nvcc,
+1. Print the card's name and power limit; build the four kernels (nvcc,
    sm_90a, one process per source, all started together) and the native
-   host library, with build times and ptxas register/spill lines.
+   host library, with build times and ptxas register/spill lines (K5's
+   for both its int32 and int64 instantiations).
 2. Hold each kernel against its plain PyTorch version on the card, exact
    on every field: K1 (extend.cu) and K1b (extend_b.cu) on random jobs at
    J=8192, Q=192, T=768; K4 (localsw.cu) on random rescue jobs at J=4096,
@@ -33,6 +34,23 @@ Phases (any failure exits non-zero):
 6. K1b's ablation variants (scripts/ablate_kernel_r5.py, K1c) timed at
    that script's shapes; only the full variant is held to the plain
    version (the others are wrong by design).
+7. K5 (sa_sampled.cu) on every row of phase 4's index (~9.2 M rows),
+   narrow and forced wide, at shifts 2, 4 and 5: exact against its plain
+   version and equal to the full SA; CUDA-event times of both at shift 5
+   and the mean number of LF steps taken.
+8. The index modes end to end: (a) phase 4's SE run with
+   sa_sample_shift=5 (K5 counted on this run), SAM body identical to
+   phase 4's, warm reads/s, device bytes of the full SA against the
+   sampled SA's; (b) the same on the forced wide layout; (c) phase 5's PE
+   fixture on the wide layout with sa_sample_shift=4, one counted pass,
+   SAM body SHA-256 equal to the pinned JAX hash.
+9. The serving modes, each body identical to the single-process one:
+   phase 4's SE run with -t 4 beside -t 1 (warm reads/s); --chunks at
+   batch 8192 with a deleted and a sentinel chunk, resumed, then refused
+   under another batch size (manifest); two `python -m tpubwa_torch.cli
+   mem --hosts 2 --host-id h --chunks DIR` processes whose chunks make
+   the single-host body; --profile on the golden fixture's first 32
+   reads writes a trace (with CUDA kernel events) and the same body.
 
 The last two lines are JSON: the kernels (launches, agreement, times) and
 {"ok": true, "device": {...}}.
@@ -60,6 +78,8 @@ KERNELS = {
                  "tpubwa/ops/extend_pallas.py:51"),     # _kernel
     "localsw": ("tpubwa_torch/csrc/localsw.cu",
                 "tpubwa/ops/localsw.py:84"),            # localsw_batch
+    "sa_sampled": ("tpubwa_torch/csrc/sa_sampled.cu",
+                   "tpubwa/ops/fm.py:323"),             # sa_lookup_sampled
 }
 J_RAND, Q_RAND, T_RAND = 8192, 192, 768
 J_SW, Q_SW = 4096, 192
@@ -95,9 +115,10 @@ def _sync(device: str = "cuda") -> None:
 def _counters() -> dict:
     from tpubwa_torch.ops.extend_cuda import extend_core, extend_core_b
     from tpubwa_torch.ops.localsw_cuda import localsw_core
+    from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
 
     return {"extend": extend_core, "extend_b": extend_core_b,
-            "localsw": localsw_core}
+            "localsw": localsw_core, "sa_sampled": sa_lookup_sampled_core}
 
 
 def reset_launches() -> None:
@@ -115,11 +136,12 @@ def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from tpubwa_torch.align.flatext import native_lib
-    from tpubwa_torch.ops import extend_cuda, localsw_cuda
+    from tpubwa_torch.ops import extend_cuda, localsw_cuda, sa_sampled_cuda
 
     builds = {"extend": lambda: extend_cuda.build("extend"),
               "extend_b": lambda: extend_cuda.build("extend_b"),
-              "localsw": localsw_cuda.build}
+              "localsw": localsw_cuda.build,
+              "sa_sampled": sa_sampled_cuda.build}
 
     def timed(fn):
         t = time.monotonic()
@@ -366,7 +388,8 @@ def print_phases(tag: str, timers) -> None:
 
 def phase_se(device: str = "cuda") -> dict:
     """Returns the captured core inputs {"left": (args, kw), "right":
-    (args, kw)} of the counted run."""
+    (args, kw)} of the counted run, and the fixture, aligner and SAM body
+    for phases 7-9."""
     import torch
 
     from tpubwa.config import MemOptions
@@ -405,6 +428,7 @@ def phase_se(device: str = "cuda") -> dict:
     check(set(captured) == {"left", "right"},
           "left and right core inputs captured")
     gate(out.getvalue())
+    body = out.getvalue()
 
     aligner.ext_core = extend_core
     aligner.timers = type(aligner.timers)()
@@ -417,7 +441,8 @@ def phase_se(device: str = "cuda") -> dict:
     print(f"[se] warm run: {N_READS} reads in {warm:.2f} s = "
           f"{N_READS / warm:.1f} reads/s (batch {BATCH})")
     print_phases("se", aligner.timers)
-    return captured
+    return dict(captured=captured, fa=fa, fq=fq, idx=idx, aligner=aligner,
+                body=body)
 
 
 # ---------------------------------------------------------------- 5 ----
@@ -470,9 +495,10 @@ def pe_gate(text: str) -> None:
           f"(sha256 {PE_SAM_SHA256})")
 
 
-def phase_pe(device: str = "cuda") -> tuple[dict, dict, tuple]:
+def phase_pe(device: str = "cuda") -> tuple[dict, dict, tuple, tuple]:
     """Returns (launches of the counted layout-t run, launches of the
-    layout-b pass, the first captured mate-rescue round (args, kw))."""
+    layout-b pass, the first captured mate-rescue round (args, kw), the
+    fixture's (fa, fq1, fq2))."""
     import torch
 
     from tpubwa.config import MemOptions
@@ -534,7 +560,7 @@ def phase_pe(device: str = "cuda") -> tuple[dict, dict, tuple]:
                   "the layout-b pass launched K1b and not K1")
             pe_gate(out.getvalue())
             b_launches = n
-    return launches, b_launches, captured[0]
+    return launches, b_launches, captured[0], (fa, fq1, fq2)
 
 
 # ---------------------------------------------------------------- 6 ----
@@ -573,6 +599,256 @@ def phase_ablation() -> dict:
     return times
 
 
+# ---------------------------------------------------------------- 7 ----
+
+def phase_k5(idx) -> dict:
+    """K5 against its plain version and the full SA on every row of
+    `idx`, narrow and wide, shifts 2, 4 and 5; times at shift 5."""
+    import torch
+
+    from tpubwa_torch.ops.fm import (DeviceIndex, build_sampled_sa,
+                                     sa_lookup_sampled)
+    from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
+
+    k5 = sa_lookup_sampled_core
+    n0 = k5.launches
+    dev = torch.device("cuda")
+    sa = torch.as_tensor(idx.sa, device=dev)               # int64 [N+1]
+    n = sa.numel()
+    err, times = 0, {}
+    for wide in (False, True):
+        layout = "wide" if wide else "narrow"
+        di = DeviceIndex.from_host(idx, dev, wide=wide, sa_stub=True)
+        rows = torch.arange(n, device=dev,
+                            dtype=torch.int64 if wide else torch.int32)
+        for shift in (2, 4, 5):
+            ss = build_sampled_sa(None, shift, wide, idx=idx, device=dev)
+            got = k5(di, ss, rows, shift)
+            want = sa_lookup_sampled(di, ss, rows, shift)
+            torch.cuda.synchronize()
+            diff = int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                       .max())
+            check(got.dtype == rows.dtype and diff == 0,
+                  f"K5 == plain on all {n} rows ({layout}, shift {shift}; "
+                  f"max |diff| {diff})")
+            check(torch.equal(got.to(torch.int64), sa),
+                  f"K5 == the full SA ({layout}, shift {shift})")
+            err = max(err, diff)
+            line = (f"[k5] {layout} shift {shift}: {n} rows == plain == "
+                    "full SA")
+            if shift == 5:
+                ms = _cuda_ms(lambda: k5(di, ss, rows, shift), reps=10)
+                plain_ms = _cuda_ms(
+                    lambda: sa_lookup_sampled(di, ss, rows, shift), reps=2)
+                steps = float((sa % (1 << shift)).double().mean())
+                times[layout] = dict(ms=ms, plain_ms=plain_ms)
+                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                         f"mean LF steps {steps:.3f} (of at most "
+                         f"{(1 << shift) - 1})")
+            print(line)
+    k5.launches = n0
+    return dict(max_abs_err=err, **times["narrow"])
+
+
+# ---------------------------------------------------------------- 8 ----
+
+def _timed_se(aligner, fq: str, workers: int = 1) -> tuple[str, float]:
+    """(SAM body, seconds) of one SE pass over `fq`."""
+    from tpubwa_torch.align.pipeline import run_se_pipeline
+
+    out = io.StringIO()
+    _sync()
+    t = time.monotonic()
+    run_se_pipeline(aligner, fq, out, workers=workers)
+    _sync()
+    return out.getvalue(), time.monotonic() - t
+
+
+def phase_index_modes(se: dict, pe_files: tuple) -> dict:
+    """Returns the launches of the sampled-SA SE run (a)."""
+    import torch
+
+    from tpubwa.config import MemOptions
+    from tpubwa.index.fmindex import FMIndex
+    from tpubwa_torch.align import pair
+    from tpubwa_torch.align.pipeline import Aligner
+    from tpubwa_torch.ops.fm import DeviceIndex, build_sampled_sa
+
+    dev = torch.device("cuda")
+    idx, fq, body = se["idx"], se["fq"], se["body"]
+
+    # (a) sampled SA, bwa's default interval of 32
+    al = Aligner(idx, MemOptions(batch_reads=BATCH, sa_sample_shift=5),
+                 device=dev)
+    _sync()
+    reset_launches()
+    text, cold = _timed_se(al, fq)
+    launches = read_launches()
+    check(launches["sa_sampled"] > 0, "the --sa-shift 5 run launched K5")
+    check(text == body, "--sa-shift 5 SAM body == phase 4's")
+    text, warm = _timed_se(al, fq)
+    check(text == body, "--sa-shift 5 warm SAM body == phase 4's")
+    full = se["aligner"].di.sa
+    full_b = full.numel() * full.element_size()
+    ss_b = sum(t.numel() * t.element_size() for t in al.ss)
+    print(f"[8a] --sa-shift 5: body == phase 4's ({cold:.2f} s cold); warm "
+          f"{N_READS / warm:.1f} reads/s; launches {launches}; device SA "
+          f"bytes: full {full_b} vs sampled {ss_b} (blocks + vals, "
+          f"{full_b / ss_b:.2f}x less)")
+
+    # (b) the wide layout, forced
+    al = Aligner(idx, MemOptions(batch_reads=BATCH), device=dev)
+    al.di = DeviceIndex.from_host(idx, dev, wide=True)
+    text, cold = _timed_se(al, fq)
+    check(text == body, "wide-layout SAM body == phase 4's")
+    text, warm = _timed_se(al, fq)
+    check(text == body, "wide-layout warm SAM body == phase 4's")
+    print(f"[8b] wide layout: body == phase 4's ({cold:.2f} s cold); warm "
+          f"{N_READS / warm:.1f} reads/s")
+
+    # (c) PE, wide with the sampled SA (shift 4), one counted pass
+    fa, fq1, fq2 = pe_files
+    pidx = FMIndex.load(fa)
+    al = Aligner(pidx, MemOptions(batch_reads=BATCH, sa_sample_shift=4),
+                 device=dev)
+    al.di = DeviceIndex.from_host(pidx, dev, wide=True, sa_stub=True)
+    al.ss = build_sampled_sa(None, 4, True, idx=pidx, device=dev)
+    out = io.StringIO()
+    _sync()
+    reset_launches()
+    t = time.monotonic()
+    check(pair.align_pe_fastq(al, fq1, fq2, out) == 0,
+          "wide + sampled PE exits 0")
+    _sync()
+    n = read_launches()
+    check(n["sa_sampled"] > 0 and n["localsw"] > 0,
+          "wide + sampled PE launched K5 and K4")
+    print(f"[8c] PE wide + --sa-shift 4: {2 * N_PAIRS} reads in "
+          f"{time.monotonic() - t:.2f} s; launches {n}")
+    pe_gate(out.getvalue())
+    return launches
+
+
+# ---------------------------------------------------------------- 9 ----
+
+def _body(sam: str) -> str:
+    return "".join(ln for ln in sam.splitlines(keepends=True)
+                   if not ln.startswith("@"))
+
+
+def phase_serving(se: dict) -> None:
+    import contextlib
+    import shutil
+
+    from tpubwa_torch import cli
+    from tpubwa_torch.align.pipeline import align_fastq
+
+    fa, fq, body = se["fa"], se["fq"], se["body"]
+
+    # -t 4 beside -t 1 on phase 4's aligner; -t 4 twice, the second pass
+    # on a caching allocator already grown to three batches in flight
+    rates = []
+    for workers in (1, 4, 4):
+        text, dt = _timed_se(se["aligner"], fq, workers=workers)
+        check(text == body, f"-t {workers} SAM body == phase 4's")
+        rates.append(N_READS / dt)
+    print(f"[9] -t 1 {rates[0]:.1f} reads/s, -t 4 {rates[1]:.1f} then "
+          f"{rates[2]:.1f} reads/s (warm; bodies identical)")
+
+    # --chunks: run, lose one chunk, poison another, resume twice
+    cdir = os.path.join(WORK, "chunks")
+    shutil.rmtree(cdir, ignore_errors=True)
+
+    def run_chunked(batch=BATCH) -> str:
+        buf = io.StringIO()
+        check(align_fastq(fa, fq, None, buf, device="cuda",
+                          batch_reads=batch, chunk_dir=cdir) == 0,
+              "chunked run exits 0")
+        return _body(buf.getvalue())
+
+    check(run_chunked() == body, "--chunks SAM body == phase 4's")
+    chunks = sorted(c for c in os.listdir(cdir) if c.startswith("chunk_"))
+    check(len(chunks) == 3, f"3 chunks at batch {BATCH} ({chunks})")
+    os.remove(os.path.join(cdir, chunks[2]))
+    sentinel = os.path.join(cdir, chunks[0])
+    with open(sentinel) as f:
+        keep = f.read()
+    with open(sentinel, "w") as f:
+        f.write("SENTINEL\n")
+    check("SENTINEL\n" in run_chunked(), "the sentinel chunk came back "
+          "verbatim (not recomputed)")
+    with open(sentinel, "w") as f:
+        f.write(keep)
+    check(run_chunked() == body, "resumed --chunks body == phase 4's")
+    try:
+        run_chunked(batch=BATCH // 2)
+        refused = False
+    except RuntimeError as e:
+        refused = "manifest" in str(e)
+    check(refused, "a run with another batch size is refused on the "
+          "manifest")
+    print("[9] --chunks: body identical; a deleted chunk recomputed, the "
+          "sentinel reused verbatim, body identical after restoring it; "
+          "another batch size refused on the manifest")
+
+    # two host processes meeting in one chunk directory
+    hdir = os.path.join(WORK, "hosts")
+    shutil.rmtree(hdir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tpubwa_torch.cli", "mem", "--device", "cuda",
+         "--batch", str(BATCH), "--hosts", "2", "--host-id", str(h),
+         "--chunks", hdir, fa, fq], cwd=ROOT, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for h in (0, 1)]
+    try:
+        errs = [p.communicate(timeout=400)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for h, (p, e) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"host {h} exits 0: {e[-2000:]}")
+    files = sorted(f for f in os.listdir(hdir) if f.startswith("chunk_"))
+    merged = "".join(open(os.path.join(hdir, f)).read() for f in files)
+    check(len(files) == 3 and merged == body,
+          "the two hosts' chunks concatenate to the single-host body")
+    print(f"[9] --hosts 2: two processes in {time.monotonic() - t:.1f} s; "
+          f"chunks {files} concatenate to the single-host body")
+
+    # --profile on the golden fixture's reference and first 32 reads (a
+    # trace of all 300 reads runs to gigabytes)
+    g = os.path.join(WORK, "golden")
+    ref = os.path.join(g, "golden_ref.fa")
+    fq32 = os.path.join(WORK, "golden_se_32.fq")
+    with open(os.path.join(g, "se.fq")) as f:
+        head = [next(f) for _ in range(4 * 32)]
+    with open(fq32, "w") as f:
+        f.writelines(head)
+    plain = io.StringIO()
+    check(align_fastq(ref, fq32, None, plain, device="cuda",
+                      batch_reads=32) == 0, "32-read golden run exits 0")
+    tdir = os.path.join(WORK, "trace")
+    shutil.rmtree(tdir, ignore_errors=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["mem", "--device", "cuda", "--batch", "32",
+                       "--profile", tdir, ref, fq32])
+    check(rc == 0, "--profile run exits 0")
+    check(_body(buf.getvalue()) == _body(plain.getvalue()),
+          "--profile SAM body == the run without it")
+    traces = [os.path.join(tdir, f) for f in os.listdir(tdir)]
+    check(len(traces) == 1 and os.path.getsize(traces[0]) > 0,
+          "--profile wrote a trace file")
+    with open(traces[0]) as f:
+        cuda_events = f.read().count('"cat": "kernel"')
+    print(f"[9] --profile (golden reference, 32 reads): {traces[0]} "
+          f"({os.path.getsize(traces[0])} bytes, {cuda_events} CUDA kernel "
+          "events), body identical")
+
+
 def main() -> int:
     import torch
 
@@ -601,28 +877,35 @@ def main() -> int:
                               *rescue_jobs(T, J_SW, Q_SW, T))
                       for T in (1024, 256)]
     phase_golden()
-    captured = phase_se()
-    for side, (a, k) in sorted(captured.items()):
+    se = phase_se()
+    for side, (a, k) in sorted(se["captured"].items()):
         for kern in ("extend", "extend_b"):
             res[kern].append(compare(kern, f"SE batch 1 {side} core", a, k))
-    pe_launches, b_launches, (sw_args, sw_kw) = phase_pe()
+    pe_launches, b_launches, (sw_args, sw_kw), pe_files = phase_pe()
     sw_real = compare("localsw", "PE batch 1 first rescue round", sw_args,
                       sw_kw)
     res["localsw"].append(sw_real)
     phase_ablation()
+    k5 = phase_k5(se["idx"])
+    res["sa_sampled"] = [k5]
+    k5_launches = phase_index_modes(se, pe_files)
+    phase_serving(se)
 
     check("jax" not in sys.modules, "the port ran without importing jax")
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
 
-    # launches: each kernel's count in the PE run that drives it (K1 and
-    # K4 in the counted layout-t run, K1b in the layout-b pass); error
-    # over every comparison; times at the path's shapes (K1/K1b: the full
-    # wave J=8192 Q=192 T=768; K4: the PE run's first rescue round)
+    # launches: each kernel's count in the run that drives it (K1 and K4
+    # in phase 5's counted layout-t run, K1b in its layout-b pass, K5 in
+    # phase 8(a)'s --sa-shift 5 run); error over every comparison; times
+    # at the path's shapes (K1/K1b: the full wave J=8192 Q=192 T=768; K4:
+    # the PE run's first rescue round; K5: every row of the SE index at
+    # shift 5, narrow)
     launches = dict(extend=pe_launches["extend"],
                     extend_b=b_launches["extend_b"],
-                    localsw=pe_launches["localsw"])
+                    localsw=pe_launches["localsw"],
+                    sa_sampled=k5_launches["sa_sampled"])
     timing = dict(extend=res["extend"][0], extend_b=res["extend_b"][0],
-                  localsw=sw_real)
+                  localsw=sw_real, sa_sampled=k5)
     print(json.dumps({"kernels": [dict(
         name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
         launches=launches[k],

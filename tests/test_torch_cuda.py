@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 (csrc/extend.cu) and K1b (csrc/extend_b.cu) against ``_extend_core``,
-K4 (csrc/localsw.cu) against ``localsw_batch``, exact on every field, and
-each wrapper's launch counter.  Needs a CUDA card and nvcc (the kernels
+K4 (csrc/localsw.cu) against ``localsw_batch``, K5 (csrc/sa_sampled.cu)
+against ``sa_lookup_sampled``, exact on every field, and each wrapper's
+launch counter; and a ``-t 4`` SE run equal to ``-t 1`` on the golden
+fixture.  Needs a CUDA card and nvcc (the kernels
 are compiled on first use); skipped where torch sees no GPU.  Imports no
 jax, so it runs on a machine without it:
 
@@ -103,3 +105,54 @@ def test_localsw_kernel_matches_plain_on_card(cuda, J, Q, T):
     want = localsw_batch(*args, **kw)
     for g, p in zip(got, want):
         assert torch.equal(g.cpu(), p.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("shift", [2, 4, 5])
+def test_sa_sampled_kernel_matches_plain_on_card(cuda, shift, wide):
+    from tpubwa.index.fmindex import FMIndex
+    from tpubwa.io.fasta import Contig
+    from tpubwa_torch.ops.fm import (DeviceIndex, build_sampled_sa,
+                                     sa_lookup_sampled)
+    from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
+
+    rng = np.random.default_rng(shift)
+    codes = rng.integers(0, 4, 50_000).astype(np.uint8)
+    idx = FMIndex.build([Contig("c1", 50_000, 0)], codes)
+    di = DeviceIndex.from_host(idx, cuda, wide=wide, sa_stub=True)
+    ss = build_sampled_sa(None, shift, wide, idx=idx, device=cuda)
+    n = idx.sa_ls.shape[0]
+    rows = np.concatenate([[0, n - 1, idx.primary],
+                           rng.integers(0, n, 20_000)])
+    r = torch.as_tensor(rows.astype(np.int64 if wide else np.int32),
+                        device=cuda)
+    n0 = sa_lookup_sampled_core.launches
+    got = sa_lookup_sampled_core(di, ss, r, shift)
+    torch.cuda.synchronize()
+    assert sa_lookup_sampled_core.launches == n0 + 1
+    assert got.dtype == r.dtype
+    want = sa_lookup_sampled(di, ss, r, shift)
+    assert torch.equal(got.cpu(), want.cpu())
+    np.testing.assert_array_equal(got.cpu().numpy(), idx.sa[rows])
+
+
+@pytest.mark.cuda
+def test_threads_se_matches_single_on_card(cuda, tmp_path):
+    import io
+    import os
+    import sys
+
+    from tpubwa_torch.align.pipeline import align_fastq
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_golden_sam import _build_fixture
+
+    ref, se_fq, _, _ = _build_fixture(str(tmp_path))
+    texts = []
+    for threads in (1, 4):
+        out = io.StringIO()
+        assert align_fastq(ref, se_fq, None, out, device="cuda",
+                           batch_reads=32, threads=threads) == 0
+        texts.append(out.getvalue())
+    assert texts[0] == texts[1]

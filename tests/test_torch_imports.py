@@ -1,9 +1,10 @@
 """The port runs without jax: in a fresh interpreter, importing
 ``tpubwa_torch.align.pipeline`` and ``tpubwa_torch.cli`` and aligning a
-few reads and a few pairs on the CPU leaves ``jax`` out of
-``sys.modules``.  Also the
-CLI's refusals: no silent CPU fallback for ``--device cuda`` without a
-card, and a clear NotImplementedError for paths outside the port."""
+few reads (sampled SA, two workers) and a few pairs on the CPU leaves
+``jax`` out of ``sys.modules``.  Also the CLI's refusals: no silent CPU
+fallback for ``--device cuda`` without a card, the JAX CLI's checks of
+``--hosts``, and a clear error for what is outside the port (a device
+mesh, ``--coordinator``)."""
 import os
 import subprocess
 import sys
@@ -30,8 +31,8 @@ with open(d + "/ref.fa", "w") as f:
     f.write(">c1\n" + "".join("ACGT"[c] for c in codes) + "\n")
 FMIndex.build(contigs, codes).save(d + "/ref.fa")
 sim.write_fastq(d + "/r.fq", sim.simulate_reads(codes, contigs, 12, seed=2))
-rc = tpubwa_torch.cli.main(["mem", "--device", "cpu", d + "/ref.fa",
-                            d + "/r.fq"])
+rc = tpubwa_torch.cli.main(["mem", "--device", "cpu", "--sa-shift", "2",
+                            "-t", "2", d + "/ref.fa", d + "/r.fq"])
 assert rc == 0, rc
 r1, r2 = sim.simulate_pairs(codes, contigs, 16, length=100, seed=3)
 sim.write_fastq(d + "/p1.fq", r1)
@@ -64,16 +65,30 @@ def test_port_runs_without_jax(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["mem", "--device", "cpu", "--hosts", "2", "REF", "R"], "--hosts"),
-    (["mem", "--device", "cpu", "--chunks", "c", "REF", "R"], "--chunks"),
-    (["mem", "--device", "cpu", "-t", "2", "REF", "R"], "worker pool"),
-])
+    (["--hosts", "2"], "--hosts requires --chunks DIR"),
+    (["--hosts", "2", "--host-id", "2", "--chunks", "c"],
+     "--host-id must be in [0, --hosts)"),
+    (["--preset", "v5e-4"], "NotImplementedError: a device mesh"),
+    (["--coordinator", "localhost:1234"], "unrecognized arguments"),
+], ids=["hosts-without-chunks", "host-id-range", "mesh-preset",
+        "coordinator"])
 def test_cli_refuses_unported_paths(tmp_path, argv, err):
-    for name in ("REF", "R"):
-        (tmp_path / name).write_text("")
-    p = _run(["-m", "tpubwa_torch.cli", *argv], tmp_path)
+    """Invalid host splits are refused as the JAX CLI refuses them; a
+    device mesh and --coordinator (ROADMAP P9) are not ported."""
+    import numpy as np
+
+    from tpubwa.index.fmindex import FMIndex
+    from tpubwa.io.fasta import Contig
+
+    codes = np.random.default_rng(1).integers(0, 4, 2000).astype(np.uint8)
+    (tmp_path / "REF").write_text(">c1\n" + "".join("ACGT"[c] for c in codes)
+                                  + "\n")
+    FMIndex.build([Contig("c1", 2000, 0)], codes).save(str(tmp_path / "REF"))
+    (tmp_path / "R").write_text("")
+    p = _run(["-m", "tpubwa_torch.cli", "mem", "--device", "cpu", *argv,
+              "REF", "R"], tmp_path)
     assert p.returncode != 0
-    assert "NotImplementedError" in p.stderr and err in p.stderr
+    assert err in p.stderr
 
 
 def test_cuda_device_without_card_raises():

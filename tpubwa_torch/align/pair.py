@@ -799,14 +799,19 @@ class PairedCountMismatch(Exception):
     """The two FASTQ files of a pair differ in read count."""
 
 
-def align_pe_fastq(aligner, fq1: str, fq2: str, out) -> int:
+def align_pe_fastq(aligner, fq1: str, fq2: str, out, workers: int = 1,
+                   chunk_dir: str | None = None,
+                   manifest: dict | None = None,
+                   shard: tuple[int, int] | None = None) -> int:
     """Streaming PE driver: paired batches stream off both FASTQs through
-    the shared dispatch-ahead driver (``pipeline.run_dispatch_ahead``):
-    batch N+1's seeding of both ends is dispatched before batch N's host
-    pairing, rescue and SAM run.  FASTQs of unequal length write every
-    complete batch, then return 1."""
+    the drivers SE uses (``pipeline.run_dispatch_ahead`` when ``workers``
+    is 1: batch N+1's seeding of both ends is dispatched before batch N's
+    host pairing, rescue and SAM run; ``pipeline.run_ordered_pool``
+    otherwise), with their ``chunk_dir`` resume and ``shard`` filter.
+    FASTQs of unequal length write every complete batch, then return 1."""
     from tpubwa.io.fastq import stream_batches
-    from tpubwa_torch.align.pipeline import run_dispatch_ahead
+    from tpubwa_torch.align.pipeline import (run_dispatch_ahead,
+                                             run_ordered_pool)
 
     opt = aligner.opt
 
@@ -822,25 +827,24 @@ def align_pe_fastq(aligner, fq1: str, fq2: str, out) -> int:
             if b1 is None or b2 is None or b1.n != b2.n:
                 raise PairedCountMismatch(
                     "paired FASTQ files differ in read count")
-            yield b1, b2, pair_id0
+            yield (b1, b2, pair_id0), 2 * b1.n
             pair_id0 += b1.n
 
-    def dispatch(item):
-        b1, b2, _ = item
+    def dispatch(payload):
+        b1, b2, _ = payload
         return (aligner.seed_batch_dispatch(b1.codes, b1.lens),
                 aligner.seed_batch_dispatch(b2.codes, b2.lens))
 
-    n_done = 0
+    def work(payload, handles=None) -> str:
+        b1, b2, pair_id0 = payload
+        return align_pe_batch(aligner, b1, b2, pair_id0, handles=handles)
 
-    def finish(item, handles) -> None:
-        nonlocal n_done
-        b1, b2, pair_id0 = item
-        out.write(align_pe_batch(aligner, b1, b2, pair_id0, handles=handles))
-        n_done += 2 * b1.n
-        print(f"[tpu-bwa-torch] {n_done} reads processed", file=sys.stderr)
-
+    kw = dict(chunk_dir=chunk_dir, manifest=manifest, shard=shard)
     try:
-        run_dispatch_ahead(items(), dispatch, finish)
+        if workers <= 1:
+            run_dispatch_ahead(items(), dispatch, work, out, **kw)
+        else:
+            run_ordered_pool(items(), work, out, workers, **kw)
     except PairedCountMismatch as e:
         # only the read-count check gets the clean one-line exit; any other
         # error propagates with its traceback

@@ -2,6 +2,8 @@
 
   tpu-bwa-torch index <ref.fa>
   tpu-bwa-torch mem [--device cuda] [--ext-layout t|b] [-k minSeedLen]
+                    [-t N] [--batch B] [--sa-shift S] [--chunks DIR]
+                    [--hosts N --host-id H] [--profile DIR]
                     <ref.fa> reads.fq [mates.fq] > out.sam
 
 ``mem`` runs on ``--device`` (default ``cuda``; it fails when no GPU is
@@ -9,7 +11,10 @@ visible — pass ``--device cpu`` to run on the CPU).  A second reads file
 aligns paired ends.  ``--ext-layout`` picks the extension kernel: ``t``
 (one thread per job, the default) or ``b`` (one warp per job); the
 output is the same.  The index format is the JAX package's
-(``tpubwa.index.fmindex``).
+(``tpubwa.index.fmindex``); an index of 2^31 characters or more loads in
+the wide (int64) layout.  None of the serving options changes the SAM.
+Not ported: device meshes (the v5e-4/v5e-16 presets) and the JAX CLI's
+``--coordinator`` (multi-process meshes).
 """
 from __future__ import annotations
 
@@ -47,13 +52,49 @@ def cmd_mem(args) -> int:
         if not os.path.exists(f):
             print(f"tpu-bwa-torch mem: no such file: {f}", file=sys.stderr)
             return 1
-    shard = (args.host_id, args.hosts) if args.hosts else None
-    return align_fastq(
+    shard = None
+    if args.hosts:
+        if not args.chunks:
+            print("tpu-bwa-torch mem: --hosts requires --chunks DIR",
+                  file=sys.stderr)
+            return 1
+        if not 0 <= args.host_id < args.hosts:
+            print("tpu-bwa-torch mem: --host-id must be in [0, --hosts)",
+                  file=sys.stderr)
+            return 1
+        shard = (args.host_id, args.hosts)
+    kw = dict(
         ref=args.ref, fq1=args.reads1, fq2=args.reads2, out=sys.stdout,
         device=args.device, min_seed_len=args.k, threads=args.t,
         batch_reads=args.batch, preset=args.preset, chunk_dir=args.chunks,
         sa_sample_shift=args.sa_shift, cmdline=" ".join(sys.argv),
         shard=shard, ext_layout=args.ext_layout)
+    if args.profile:
+        return _profiled(args.profile, args.device, kw)
+    return align_fastq(**kw)
+
+
+def _profiled(trace_dir: str, device: str, kw: dict) -> int:
+    """Run align_fastq under torch.profiler (CPU activity, plus CUDA
+    activity on a CUDA device) and write its Chrome trace into
+    `trace_dir`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpubwa_torch.align.pipeline import align_fastq, resolve_device
+
+    acts = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        rc = align_fastq(**kw)
+        if ProfilerActivity.CUDA in acts:
+            torch.cuda.synchronize()
+    path = os.path.join(trace_dir, f"tpu-bwa-torch.{os.getpid()}.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[tpu-bwa-torch] trace written to {path}", file=sys.stderr)
+    return rc
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -73,20 +114,33 @@ def main(argv: list[str] | None = None) -> int:
                     help="extension kernel: t = a thread per job (default),"
                          " b = a warp per job; the output is the same")
     pm.add_argument("-t", type=int, default=1,
-                    help="host worker threads (only 1 is ported)")
+                    help="host worker threads: N > 1 aligns whole batches "
+                         "in N threads, written in input order")
     pm.add_argument("-k", type=int, default=19, help="minimum seed length")
     pm.add_argument("--batch", type=int, default=None,
                     help="reads per device batch")
     pm.add_argument("--preset", default=None,
                     choices=["cpu-dev", "v5e-1", "v5e-4", "v5e-16"],
-                    help="batch-size preset (presets with a device mesh are "
-                         "not ported)")
+                    help="batch-size preset (presets with a device mesh, "
+                         "v5e-4 and v5e-16, are not ported)")
     pm.add_argument("--chunks", default=None, metavar="DIR",
-                    help="restartable chunked output (not ported)")
+                    help="persist each batch's SAM as an idempotent chunk "
+                         "file in DIR; re-running resumes from completed "
+                         "chunks (restartable output)")
     pm.add_argument("--sa-shift", type=int, default=0, metavar="S",
-                    help="sampled-SA serving (not ported)")
+                    help="sampled-SA serving: keep 1/2^S of the suffix "
+                         "array on the device and LF-walk the rest (exact "
+                         "results)")
+    pm.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the run "
+                         "into DIR")
     pm.add_argument("--hosts", type=int, default=None, metavar="N",
-                    help="multi-host scale-out (not ported)")
+                    help="multi-host scale-out: total number of host "
+                         "processes; each aligns its share of the read "
+                         "batches into the shared --chunks DIR (cat "
+                         "DIR/chunk_*.sam reproduces the single-host SAM "
+                         "body).  Multi-process device meshes "
+                         "(--coordinator) are not ported")
     pm.add_argument("--host-id", type=int, default=0, metavar="H",
                     help="this process's id in [0, --hosts)")
     pm.add_argument("ref")

@@ -5,6 +5,12 @@ with nvcc for sm_90a into ``build/tpubwa_torch/`` at first use, keyed by a
 hash of the source, and loads it with ctypes; each kernel gets its own
 ``.so`` and sets its own argtypes.  There is no fallback: a missing nvcc
 or a failed build raises.
+
+``-t N`` worker threads share the wrappers, so the first build of a
+kernel and the wrappers' ``launches`` counters are guarded.  Each source
+has its own lock (``lock(name)``), held around the check-build-load here
+and around each wrapper's ``build()``, so two sources still build in
+parallel; ``count_launch`` adds to a counter under a lock.
 """
 from __future__ import annotations
 
@@ -13,12 +19,30 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpubwa_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_locks: dict[str, threading.RLock] = {}
+_locks_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def lock(name: str) -> threading.RLock:
+    """The lock of kernel source `name` (re-entrant: a wrapper's build()
+    holds it while it calls ``build``)."""
+    with _locks_lock:
+        return _locks.setdefault(name, threading.RLock())
+
+
+def count_launch(fn) -> None:
+    """One more launch on wrapper `fn`'s ``launches`` counter."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def _nvcc(src: Path) -> str:
@@ -35,17 +59,21 @@ def build(name: str) -> tuple[ctypes.CDLL, str]:
     """Compile ``csrc/<name>.cu`` unless a build of this exact source
     exists, and load it.  Returns (library, nvcc's register/shared-memory
     report; "" when the build already existed)."""
-    src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libtpubwa_{name}_{tag}.so"
-    report = ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(src), *NVCC_FLAGS, "-o", str(tmp),
-                               str(src)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        os.replace(tmp, so)
-        report = proc.stderr
-    return ctypes.CDLL(str(so)), report
+    with lock(name):
+        src = CSRC / f"{name}.cu"
+        tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        so = BUILD_DIR / f"libtpubwa_{name}_{tag}.so"
+        report = ""
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # unique per process and thread: other processes may build the
+            # same source into the same directory at the same time
+            tmp = so.with_name(
+                f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+            proc = subprocess.run([_nvcc(src), *NVCC_FLAGS, "-o", str(tmp),
+                                   str(src)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            os.replace(tmp, so)
+            report = proc.stderr
+        return ctypes.CDLL(str(so)), report

@@ -41,16 +41,17 @@ def build(name: str = "extend") -> str:
     """Build (unless built) and load kernel `name` ("extend" or
     "extend_b").  Returns nvcc's register/shared-memory report for a
     fresh build, "" otherwise."""
-    if name in _fns:
-        return ""
-    lib, report = cuda_build.build(name)
-    entry, n_int = _ENTRY[name]
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
-    _fns[name] = fn
-    return report
+    with cuda_build.lock(name):
+        if name in _fns:
+            return ""
+        lib, report = cuda_build.build(name)
+        entry, n_int = _ENTRY[name]
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        _fns[name] = fn
+        return report
 
 
 def _launch(name, query, qlen, target, tlen, mat, w, h0, end_bonus, *,
@@ -103,7 +104,7 @@ def extend_core(query: torch.Tensor, qlen: torch.Tensor,
         raise ValueError(f"no extension kernel for device {query.device}")
     res = _launch("extend", query, qlen, target, tlen, mat, w, h0,
                   end_bonus, **kw)
-    extend_core.launches += 1
+    cuda_build.count_launch(extend_core)
     return res
 
 
@@ -131,7 +132,7 @@ def extend_core_b(query: torch.Tensor, qlen: torch.Tensor,
     _check_b(query)
     res = _launch("extend_b", query, qlen, target, tlen, mat, w, h0,
                   end_bonus, variant=0, **kw)
-    extend_core_b.launches += 1
+    cuda_build.count_launch(extend_core_b)
     return res
 
 

@@ -1,9 +1,14 @@
 """Device-side FM-index search primitives (PyTorch).
 
-Port of ``tpubwa.ops.fm`` (narrow layout: index text < 2^31).  Each occ
-query is ONE gather row from the fused ``cp[nblocks, 8]`` int32 tensor
-(4 cumulative counts + 64 BWT symbols packed 2-bit into 4 words),
-followed by a popcount.
+Port of ``tpubwa.ops.fm``.  Each occ query is ONE gather row from the
+fused ``cp[nblocks, 8]`` tensor (4 cumulative counts + 64 BWT symbols
+packed 2-bit into 4 words), followed by a popcount.  Two dtype layouts
+share one code path (every op follows the dtypes of its inputs):
+
+- **narrow** (seq_len + 1 < 2^31): ``cp``, ``sa`` and ``L2`` are int32;
+- **wide** (>= 2^31, e.g. GRCh38's 6.2 Gbp index text): ``cp``, ``sa``
+  and ``L2`` are int64, and ``cp``'s columns 4..7 hold the packed words'
+  unsigned values, so an occ query is still one gather row.
 
 torch has no popcount op and no arithmetic on uint32, and ``>>`` on int32
 is arithmetic.  So the packed words are widened to int64 and masked to
@@ -11,6 +16,12 @@ their 32-bit value right after the gather, and the popcount is a SWAR bit
 count on those int64 values.  ``pac_words`` keeps the uint32 bit pattern
 in an int32 tensor: its 2-bit fields are read as ``(w >> 2k) & 3`` with
 ``2k <= 30``, which an arithmetic shift answers exactly.
+
+The sampled suffix array (``SampledSA``, ``build_sampled_sa``,
+``sa_lookup_sampled``) is the single-device mode for genomes whose full SA
+does not fit: it keeps the SA positions that are multiples of 2^shift and
+LF-walks back to one of them.  ``sa_lookup_sampled`` here is the plain
+version; ``ops.sa_sampled_cuda`` holds its CUDA kernel.
 """
 from __future__ import annotations
 
@@ -24,40 +35,70 @@ from tpubwa.index.fmindex import FMIndex
 _M32 = 0xFFFFFFFF
 
 
-class DeviceIndex(NamedTuple):
-    """Device-resident FM-index tensors (narrow layout)."""
+def _tensor(a, device) -> torch.Tensor:
+    """numpy -> tensor on `device`: int64 stays int64, uint32 keeps its
+    bit pattern as int32, everything else becomes int32."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:   # e.g. np.asarray of a JAX array
+        a = a.copy()
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype != np.int64:
+        a = a.astype(np.int32)
+    return torch.as_tensor(a, device=device)
 
-    cp: torch.Tensor         # int32 [nblocks, 8]
-    sa: torch.Tensor         # int32 [N+1]
+
+class DeviceIndex(NamedTuple):
+    """Device-resident FM-index tensors (narrow or wide layout)."""
+
+    cp: torch.Tensor         # int32|int64 [nblocks, 8]
+    sa: torch.Tensor         # int32|int64 [N+1] ([1] under sa_stub)
     pac_words: torch.Tensor  # int32 [ceil(l_pac/16)] (uint32 bit pattern)
-    L2: torch.Tensor         # int32 [5]
+    L2: torch.Tensor         # int32|int64 [5]
     primary: int
     l_pac: int
 
     @classmethod
-    def from_host(cls, idx: FMIndex, device) -> "DeviceIndex":
-        if idx.seq_len + 1 >= 1 << 31:
-            raise NotImplementedError(
-                "wide (>= 2^31) indexes are not ported yet "
-                "(ROADMAP.md queue 1, item P8)")
+    def from_host(cls, idx: FMIndex, device, wide: bool | None = None,
+                  sa_stub: bool = False) -> "DeviceIndex":
+        """The device layout of `idx`: wide when ``wide`` says so, or by
+        default when the index text needs it (seq_len + 1 >= 2^31).
+        ``sa_stub`` keeps only ``sa[:1]`` (sampled-SA serving resolves
+        positions through a ``SampledSA`` instead)."""
+        if wide is None:
+            wide = idx.seq_len + 1 >= 1 << 31
+        if not wide:
+            return cls.from_numpy(dict(
+                cp=idx.cp.astype(np.int32),
+                sa=idx.sa_ls[:1] if sa_stub else idx.sa_ls,
+                pac_words=idx.pac_words,
+                L2=np.asarray(idx.L2).astype(np.int32),
+                primary=idx.primary, l_pac=idx.l_pac), device)
+        cp_wide = np.zeros((idx.cp.shape[0], 8), dtype=np.int64)
+        counts = idx.cp[:, 0:4].view(np.uint32).astype(np.int64)
+        if idx.cp_hi is not None:   # >= 2^31 builds carry the high words
+            counts |= idx.cp_hi.astype(np.int64) << 32
+        cp_wide[:, 0:4] = counts
+        cp_wide[:, 4:8] = idx.cp[:, 4:8].view(np.uint32)
+        sa64 = (np.asarray([int(idx.sa_ls[0]) | (int(idx.sa_ms[0]) << 32)],
+                           np.int64) if sa_stub
+                else idx.sa.astype(np.int64))
         return cls.from_numpy(dict(
-            cp=idx.cp, sa=idx.sa_ls, pac_words=idx.pac_words, L2=idx.L2,
+            cp=cp_wide, sa=sa64, pac_words=idx.pac_words,
+            L2=np.asarray(idx.L2).astype(np.int64),
             primary=idx.primary, l_pac=idx.l_pac), device)
 
     @classmethod
     def from_numpy(cls, arrays: Mapping[str, np.ndarray],
                    device) -> "DeviceIndex":
         """Build from numpy arrays named like the fields (for example
-        ``np.asarray`` of each field of ``tpubwa.ops.fm.DeviceIndex``)."""
-        def i32(a):
-            a = np.ascontiguousarray(a)
-            if a.dtype == np.uint32:
-                a = a.view(np.int32)
-            return torch.as_tensor(a.astype(np.int32), device=device)
-
-        return cls(cp=i32(arrays["cp"]), sa=i32(arrays["sa"]),
-                   pac_words=i32(arrays["pac_words"]),
-                   L2=i32(arrays["L2"]),
+        ``np.asarray`` of each field of ``tpubwa.ops.fm.DeviceIndex``):
+        int64 arrays stay int64, uint32 ones keep their bit pattern as
+        int32, the rest become int32."""
+        return cls(cp=_tensor(arrays["cp"], device),
+                   sa=_tensor(arrays["sa"], device),
+                   pac_words=_tensor(arrays["pac_words"], device),
+                   L2=_tensor(arrays["L2"], device),
                    primary=int(arrays["primary"]),
                    l_pac=int(arrays["l_pac"]))
 
@@ -127,6 +168,149 @@ def set_intv(di: DeviceIndex, c: torch.Tensor) -> BiInterval:
 def sa_lookup(di: DeviceIndex, r: torch.Tensor) -> torch.Tensor:
     """Suffix-array positions for rows r."""
     return di.sa[r]
+
+
+# ------------------------------------------------------- sampled SA ----
+#
+# Rows are sampled by SUFFIX POSITION (rows r with sa[r] % 2^shift == 0),
+# so the LF-walk back to a sample is bounded at 2^shift - 1 steps.  Each
+# step is two gathers per lane: a rank-directory row and a cp row.  The
+# results are exactly the full SA's.
+
+
+class SampledSA(NamedTuple):
+    """Position-sampled suffix array + rank directory.
+
+    blocks: int32|int64 [nblocks, 4] — per 64 rows: (rank_before,
+            mask_lo, mask_hi, 0); mask bit b set <=> row 64*blk + b is
+            sampled.  The mask words are stored as signed 32-bit values
+            (their uint32 bit pattern), sign-extended in an int64 tensor.
+    vals:   int32|int64 [n_sampled] — suffix positions of sampled rows in
+            row order
+    """
+
+    blocks: torch.Tensor
+    vals: torch.Tensor
+
+    @classmethod
+    def from_numpy(cls, arrays: Mapping[str, np.ndarray],
+                   device) -> "SampledSA":
+        """Build from ``np.asarray`` of each field of
+        ``tpubwa.ops.fm.SampledSA`` (dtypes as in ``DeviceIndex``)."""
+        return cls(blocks=_tensor(arrays["blocks"], device),
+                   vals=_tensor(arrays["vals"], device))
+
+
+def build_sampled_sa(sa_host, shift: int, wide: bool, idx=None,
+                     device="cpu") -> SampledSA:
+    """Host-side construction, CHUNKED: a Gbp-scale SA is ~19 GB as
+    int64, and a one-shot vectorized build holds several times that in
+    transients.  Chunks of 64M rows keep the working set ~1 GB.
+
+    Pass ``idx`` (FMIndex) instead of ``sa_host`` to avoid materializing
+    the full int64 SA at all — chunks combine the 5-byte split storage
+    (sa_ls/sa_ms) on the fly."""
+    intv = 1 << shift
+    if idx is not None:
+        n = idx.sa_ls.shape[0]
+
+        def chunk(lo, hi):
+            return (idx.sa_ls[lo:hi].astype(np.int64)
+                    | (idx.sa_ms[lo:hi].astype(np.int64) << 32))
+    else:
+        n = sa_host.shape[0]
+
+        def chunk(lo, hi):
+            return sa_host[lo:hi]
+
+    nblocks = (n + 63) // 64
+    dt = np.int64 if wide else np.int32
+    blocks = np.zeros((nblocks, 4), dtype=dt)
+    vals_parts = []
+    shifts32 = np.arange(32, dtype=np.uint32)[None, :]
+    C = 1 << 26  # 64M rows per chunk (multiple of 64)
+    rank = 0
+    for lo in range(0, n, C):
+        hi = min(lo + C, n)
+        sa_c = chunk(lo, hi)
+        mask = (sa_c % intv) == 0
+        vals_parts.append(sa_c[mask].astype(dt))
+        nb = (hi - lo + 63) // 64
+        bits = np.zeros(nb * 64, dtype=bool)
+        bits[: hi - lo] = mask
+        w = bits.reshape(nb, 2, 32)
+        words = (w.astype(np.uint32) << shifts32[None, :, :]).sum(
+            axis=2, dtype=np.uint32)
+        cnt = bits.reshape(nb, 64).sum(axis=1)
+        b0 = lo // 64
+        blocks[b0:b0 + nb, 0] = rank + np.cumsum(cnt) - cnt
+        blocks[b0:b0 + nb, 1] = words[:, 0].view(np.int32)
+        blocks[b0:b0 + nb, 2] = words[:, 1].view(np.int32)
+        rank += int(cnt.sum())
+    vals = np.concatenate(vals_parts) if vals_parts else \
+        np.zeros(0, dtype=dt)
+    return SampledSA.from_numpy(dict(blocks=blocks, vals=vals), device)
+
+
+def lf_step(di: DeviceIndex, r: torch.Tensor) -> torch.Tensor:
+    """One LF-mapping step: the row of the suffix starting one base
+    earlier (sa[lf(r)] == sa[r] - 1; the caller guarantees sa[r] > 0).
+    One cp gather per lane gives both the BWT symbol at r and its occ
+    count."""
+    j = r - (r > di.primary).to(r.dtype)
+    off = (j & 63).to(torch.int64)
+    row = di.cp[j >> 6]                                # [..., 8]
+    counts = row[..., 0:4]
+    words = row[..., 4:8].to(torch.int64) & _M32       # [..., 4]
+    # BWT symbol at row r: word (off >> 4), 2-bit field (off & 15)
+    word = words.gather(-1, (off >> 4)[..., None])[..., 0]
+    c = (word >> (2 * (off & 15))) & 3
+    # occ(c, r): checkpoint count + symbols equal to c before off
+    ids = torch.arange(4, dtype=torch.int64, device=r.device)
+    p = (off[..., None] - 16 * ids).clamp(0, 16)
+    mask = torch.where(p >= 16, _M32, (torch.ones_like(p) << (2 * p)) - 1)
+    x = words ^ (c * 0x55555555)[..., None]
+    neq_bits = (x | (x >> 1)) & 0x55555555
+    neq = popcount32(neq_bits & mask).sum(-1)
+    occ_c = counts.gather(-1, c[..., None])[..., 0] + (off - neq).to(
+        counts.dtype)
+    return di.L2[c] + occ_c
+
+
+def _probe(ss: SampledSA, r: torch.Tensor):
+    """(is row r sampled, its rank among the sampled rows)."""
+    brow = ss.blocks[r >> 6]                           # [..., 4]
+    off = (r & 63).to(torch.int64)
+    lo = brow[..., 1].to(torch.int64) & _M32           # signed -> uint32
+    hi = brow[..., 2].to(torch.int64) & _M32
+    in_hi = off >= 32
+    bit = ((torch.where(in_hi, hi, lo) >> (off & 31)) & 1).bool()
+    one = torch.ones_like(off)
+    m_lo = torch.where(in_hi, _M32, (one << (off & 31)) - 1)
+    m_hi = torch.where(in_hi, (one << (off - 32).clamp(0, 31)) - 1, 0)
+    rank = brow[..., 0] + (popcount32(lo & m_lo)
+                           + popcount32(hi & m_hi)).to(brow.dtype)
+    return bit, rank
+
+
+def sa_lookup_sampled(di: DeviceIndex, ss: SampledSA, rows: torch.Tensor,
+                      shift: int) -> torch.Tensor:
+    """Suffix positions for rows (in [0, N]) via the sampled SA: the plain
+    version, all lanes in lockstep for 2^shift iterations.  Each
+    iteration probes first and takes the sample (its position plus the
+    steps taken so far) for rows whose bit is set, then LF-steps the rows
+    not done.  A row that reaches no sample returns 0."""
+    n_vals = ss.vals.shape[0]
+    r = rows
+    res = torch.zeros_like(rows)
+    done = torch.zeros(rows.shape, dtype=torch.bool, device=rows.device)
+    for t in range(1 << shift):
+        bit, rank = _probe(ss, r)
+        v = ss.vals[rank.clamp(0, n_vals - 1)]
+        res = torch.where(bit & ~done, (v + t).to(res.dtype), res)
+        done = done | bit
+        r = torch.where(done, r, lf_step(di, r))
+    return res
 
 
 # ------------------------------------------- contiguous window fetch ----

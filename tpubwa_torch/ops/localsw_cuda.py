@@ -24,15 +24,16 @@ def build() -> str:
     """Build (unless built) and load the kernel; returns nvcc's report
     for a fresh build, "" otherwise."""
     global _fn
-    if _fn is not None:
-        return ""
-    lib, report = cuda_build.build("localsw")
-    fn = lib.tpubwa_localsw_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
-    _fn = fn
-    return report
+    with cuda_build.lock("localsw"):
+        if _fn is not None:
+            return ""
+        lib, report = cuda_build.build("localsw")
+        fn = lib.tpubwa_localsw_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        _fn = fn
+        return report
 
 
 def _launch(query, qlen, target, tlen, mat, minsc, endsc, *, o_del, e_del,
@@ -81,7 +82,7 @@ def localsw_core(query: torch.Tensor, qlen: torch.Tensor,
     if query.device.type != "cuda":
         raise ValueError(f"no local SW kernel for device {query.device}")
     res = _launch(query, qlen, target, tlen, mat, minsc, endsc, **kw)
-    localsw_core.launches += 1
+    cuda_build.count_launch(localsw_core)
     return res
 
 

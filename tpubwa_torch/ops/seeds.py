@@ -6,6 +6,10 @@ Intervals with more than max_occ hits are subsampled with stride
 occ/max_occ (bwa's occurrence sampling); a per-read cap bounds the
 output, with overflow reported.  Also computes l_rep (bases covered by
 repetitive SMEMs) for the frac_rep MAPQ correction.
+
+With ``sa_shift > 0`` the suffix positions come from a sampled SA
+(``ss``) through ``ops.sa_sampled_cuda.sa_lookup_sampled_core`` (K5 on a
+CUDA device); the device index then holds only ``sa[:1]``.
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ from typing import NamedTuple
 
 import torch
 
-from tpubwa_torch.ops.fm import DeviceIndex
+from tpubwa_torch.ops.fm import DeviceIndex, SampledSA
+from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
 from tpubwa_torch.ops.smem import Smems
 
 I32 = torch.int32
@@ -28,8 +33,9 @@ class CompactSeeds(NamedTuple):
 
 
 def seed_rows(di: DeviceIndex, sm: Smems, *, max_occ: int = 500,
-              per_read_cap: int = 128,
-              rows_per_read: int = 32) -> CompactSeeds:
+              per_read_cap: int = 128, rows_per_read: int = 32,
+              ss: SampledSA | None = None,
+              sa_shift: int = 0) -> CompactSeeds:
     """SMEMs -> dense [CAP, 4] seed rows in compacted global layout
     (read-major, SMEM order within read), CAP = B * rows_per_read.
 
@@ -75,7 +81,12 @@ def seed_rows(di: DeviceIndex, sm: Smems, *, max_occ: int = 500,
     rd = owner // M
     j = t - g_beg[owner]
     sa_row = sm.k.reshape(-1)[owner] + (j * step.reshape(-1)[owner]).to(idt)
-    rbeg = di.sa[sa_row.clamp(0, di.sa.shape[0] - 1)]
+    if sa_shift > 0:
+        # rows span [0, N]: clip to the text, never to the stub's sa[:1]
+        rbeg = sa_lookup_sampled_core(di, ss, sa_row.clamp(0, 2 * di.l_pac),
+                                      sa_shift)
+    else:
+        rbeg = di.sa[sa_row.clamp(0, di.sa.shape[0] - 1)]
     qbeg = sm.start.reshape(-1)[owner]
     slen = sm.end.reshape(-1)[owner] - qbeg
 

@@ -7,30 +7,43 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (any failure exits non-zero):
 
-1. Print the card's name and power limit; build the four kernels (nvcc,
-   sm_90a, one process per source, all started together) and the native
-   host library, with build times and ptxas register/spill lines (K5's
-   for both its int32 and int64 instantiations).
+1. Print the card's name and power limit; build the six kernel sources
+   (nvcc, sm_90a, one process per source, all started together) and the
+   native host library (g++), with build times and ptxas register/spill
+   lines (K2's and K5's for both their int32 and int64 instantiations).
 2. Hold each kernel against its plain PyTorch version on the card, exact
    on every field: K1 (extend.cu) and K1b (extend_b.cu) on random jobs at
    J=8192, Q=192, T=768; K4 (localsw.cu) on random rescue jobs at J=4096,
-   Q=192, T=1024 and T=256.
-3. The golden fixture of tests/test_golden_sam.py through the port on the
-   card must equal tests/golden/se.sam, and its pairs tests/golden/pe.sam
-   under both extension layouts (t = K1, b = K1b), byte for byte.
+   Q=192, T=1024 and T=256; K2 (smem_chain.cu) on the first 8192 reads of
+   phase 4's and of phase 5's fixture, narrow and forced wide: rounds 1
+   and 3, round 2 on the candidates round 1 gives, and all three at caps
+   small enough to overflow, whole buffers (k, l, s, start, end, n,
+   overflow); K3 (global_align.cu) on 8192 synthetic lanes (long gaps,
+   nseg > GA_K, one-base target and query, band at cap and floor): the
+   pack of _ga_rows and the executor's step rows.  CUDA-event times of
+   kernel and plain; each kernel's bound from the work these inputs need.
+3. The golden fixture (the recipe of tests/test_golden_sam.py, made here
+   with the port's own index builder and simulator) through the port on
+   the card must equal tests/golden/se.sam, and its pairs
+   tests/golden/pe.sam under both extension layouts (t = K1, b = K1b),
+   byte for byte.
 4. SE: a 4.6 Mb random genome (seed 42), 20,000 x 150 bp reads at 1%
    error (seed 7), batch 8192: one primary per read, >= 97% mapped,
    >= 92% within 50 bp of the simulated position.  The launch counts of
-   this run show the main path went through K1; its first left and right
-   core inputs are captured and K1 and K1b are held to the plain version
-   on them.  A warm pass gives reads/s and the phase table.
+   this run show the main path went through K2, K1 and K3; its first
+   left and right core inputs are captured and K1 and K1b are held to the
+   plain version on them, and K3 on the lanes of its first _ga_rows call
+   (the batch's non-exact lanes).  A warm pass gives reads/s and the
+   phase table; a profiled pass (torch.profiler) the number of device
+   kernels and the device-busy share.
 5. PE: bench.py's chr21-style repeat genome (4.6 Mb, seed 42), 10,000
    pairs of 150 bp at 1% error (seed 7, insert 400 +- 50), batch 8192.
-   The counted run (layout t) must launch K1 and K4, give one primary per
-   end and a SAM body whose SHA-256 equals the JAX package's (pinned
-   below); its first mate-rescue round is captured and K4 is held to the
-   plain version on it.  Then a warm pass under each layout, the b pass
-   counted again for K1b: reads/s and the phase table.
+   The counted run (layout t) must launch K2, K1, K4 and K3, give one
+   primary per end and a SAM body whose SHA-256 equals the JAX package's
+   (pinned below); its first mate-rescue round is captured and K4 is held
+   to the plain version on it, and K3 on its first _ga_rows call.  Then
+   a warm pass under each layout, the b pass counted again for K1b:
+   reads/s and the phase table.
 6. K1b's ablation variants (scripts/ablate_kernel_r5.py, K1c) timed at
    that script's shapes; only the full variant is held to the plain
    version (the others are wrong by design).
@@ -52,8 +65,18 @@ Phases (any failure exits non-zero):
    the single-host body; --profile on the golden fixture's first 32
    reads writes a trace (with CUDA kernel events) and the same body.
 
-The last two lines are JSON: the kernels (launches, agreement, times) and
-{"ok": true, "device": {...}}.
+Before the last line: one JSON line of the seven kernels (launches on the
+path that runs them, agreement, kernel / plain / bound times), then the
+card line again.  The last line is {"ok": true, "device": {...}}.
+
+A kernel's bound is the larger of (bytes it must move) / HBM_BPS and
+(integer operations on this run's data) / INT32_OPS; the operation counts
+per unit of work are the OPS_* constants below: what the function needs
+for one band cell, traceback step, extension step or LF step, not what a
+kernel happens to execute.  The units are counted on this run's data: band
+cells visited, traceback steps taken, extension steps of every chain.
+No single PyTorch call computes any of these functions, so library_ms is
+null throughout.
 """
 from __future__ import annotations
 
@@ -70,17 +93,50 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
+GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
+
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "extend": ("tpubwa_torch/csrc/extend.cu",
                "tpubwa/ops/extend_pallas.py:211"),      # _kernel_t
     "extend_b": ("tpubwa_torch/csrc/extend_b.cu",
                  "tpubwa/ops/extend_pallas.py:51"),     # _kernel
+    "extend_b_variant": ("tpubwa_torch/csrc/extend_b.cu",
+                         "scripts/ablate_kernel_r5.py:37"),   # make_kernel
+    "smem_chain": ("tpubwa_torch/csrc/smem_chain.cu",
+                   "tpubwa/ops/smem_chain.py:109"),     # the three chains
+    "global_align": ("tpubwa_torch/csrc/global_align.cu",
+                     "tpubwa/ops/global_align.py:142"),  # fill + traceback
     "localsw": ("tpubwa_torch/csrc/localsw.cu",
                 "tpubwa/ops/localsw.py:84"),            # localsw_batch
     "sa_sampled": ("tpubwa_torch/csrc/sa_sampled.cu",
                    "tpubwa/ops/fm.py:323"),             # sa_lookup_sampled
 }
+# The card's peaks for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s
+# of HBM; 67 TFLOP/s of float32 outside the tensor cores is 128 lanes per
+# SM at 2 FLOPs per fused multiply-add, and int32 has 64 lanes per SM at
+# one operation each, so 67e12 / 2 / 2 integer operations a second.
+HBM_BPS = 3.35e12
+INT32_OPS = 67e12 / 2 / 2
+# integer operations per unit of work, counted from the kernels' sources
+OPS_EXT_CELL = 15      # K1 / K1b: one band cell of ksw_extend2
+OPS_SW_CELL = 12       # K4: one cell of the local SW
+OPS_GA_CELL = 25       # K3: one band cell of the global fill (+ direction)
+OPS_GA_STEP = 12       # K3: one traceback step with its RLE
+# K2: one extension step, by the least arithmetic that computes it (not the
+# kernel's own, which counts each base separately).  occ of the four bases
+# at one position, 75: the sentinel shift 2, block and offset 2, the row's
+# address 1; per packed word 13 (the two bit planes 3, the position mask 4,
+# the masked planes 2, their and 1, three popcounts: both planes and the
+# and); the three sums over the four words 9; the four bases' counts from
+# the sums and the offset 5 (the fourth base follows from the other
+# three); adding the checkpoint counts 4: 5 + 4 * 13 + 9 + 5 + 4.  The
+# update, 30: four interval sizes 4, the sentinel test 4, the chain of
+# co-interval starts 4, the L2 add 1, three selects by base 9, the swaps
+# of a forward step 4, the take rule 3, the advance 1.
+OPS_OCC4 = 5 + 4 * 13 + 9 + 5 + 4
+OPS_CHAIN_STEP = 2 * OPS_OCC4 + 30
+OPS_LF_STEP = 60       # K5: one probe + one LF step (one base's occ)
 J_RAND, Q_RAND, T_RAND = 8192, 192, 768
 J_SW, Q_SW = 4096, 192
 REF_LEN, N_READS, BATCH = 4_600_000, 20_000, 8192
@@ -113,21 +169,59 @@ def _sync(device: str = "cuda") -> None:
 
 
 def _counters() -> dict:
-    from tpubwa_torch.ops.extend_cuda import extend_core, extend_core_b
+    """kernel -> the wrappers that launch it (each counts its own)."""
+    from tpubwa_torch.ops import global_align_cuda as k3
+    from tpubwa_torch.ops import smem_chain_cuda as k2
+    from tpubwa_torch.ops.extend_cuda import (extend_b_variant, extend_core,
+                                              extend_core_b)
     from tpubwa_torch.ops.localsw_cuda import localsw_core
     from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
 
-    return {"extend": extend_core, "extend_b": extend_core_b,
-            "localsw": localsw_core, "sa_sampled": sa_lookup_sampled_core}
+    return {"extend": (extend_core,), "extend_b": (extend_core_b,),
+            "extend_b_variant": (extend_b_variant,),
+            "smem_chain": (k2.smem_round1_core, k2.smem_through_core,
+                           k2.smem_round3_core),
+            "global_align": (k3.ga_pack, k3.global_align_cigar_core),
+            "localsw": (localsw_core,),
+            "sa_sampled": (sa_lookup_sampled_core,)}
 
 
 def reset_launches() -> None:
-    for fn in _counters().values():
-        fn.launches = 0
+    for fns in _counters().values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {k: fn.launches for k, fn in _counters().items()}
+    return {k: sum(fn.launches for fn in fns)
+            for k, fns in _counters().items()}
+
+
+class keep_launches:
+    """Launches made inside are comparisons, not the main path's: every
+    counter is put back on exit."""
+
+    def __enter__(self):
+        self.saved = [(fn, fn.launches) for fns in _counters().values()
+                      for fn in fns]
+
+    def __exit__(self, *exc):
+        for fn, n in self.saved:
+            fn.launches = n
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the int32 rate, whichever is larger."""
+    by_bytes = n_bytes / HBM_BPS * 1e3
+    by_ops = n_ops / INT32_OPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                library_ms=None)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 # ---------------------------------------------------------------- 1 ----
@@ -135,11 +229,15 @@ def read_launches() -> dict:
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
-    from tpubwa_torch.align.flatext import native_lib
-    from tpubwa_torch.ops import extend_cuda, localsw_cuda, sa_sampled_cuda
+    from tpubwa_torch.native import load_native
+    from tpubwa_torch.ops import (extend_cuda, global_align_cuda,
+                                  localsw_cuda, sa_sampled_cuda,
+                                  smem_chain_cuda)
 
     builds = {"extend": lambda: extend_cuda.build("extend"),
               "extend_b": lambda: extend_cuda.build("extend_b"),
+              "smem_chain": smem_chain_cuda.build,
+              "global_align": global_align_cuda.build,
               "localsw": localsw_cuda.build,
               "sa_sampled": sa_sampled_cuda.build}
 
@@ -152,7 +250,7 @@ def phase_build() -> None:
     with ThreadPoolExecutor(len(builds)) as ex:
         futs = {name: ex.submit(timed, fn) for name, fn in builds.items()}
         done = {name: f.result() for name, f in futs.items()}
-    print(f"[build] {len(builds)} kernels built in parallel in "
+    print(f"[build] {len(builds)} kernel sources built in parallel in "
           f"{time.monotonic() - t0:.2f} s")
     for name, (report, dt) in done.items():
         print(f"[build] {name} ({KERNELS[name][0]}) built and loaded in "
@@ -162,9 +260,9 @@ def phase_build() -> None:
                     or "spill" in line):
                 print(f"[build]   ptxas: {line.strip()}")
     t = time.monotonic()
-    native_lib()
-    print(f"[build] native host library ready in "
-          f"{time.monotonic() - t:.2f} s")
+    load_native()
+    print(f"[build] native host library (tpubwa_torch/native/*.cpp, g++) "
+          f"built and loaded in {time.monotonic() - t:.2f} s")
 
 
 # ---------------------------------------------------------------- 2 ----
@@ -173,7 +271,7 @@ def random_jobs(seed: int, J: int, Q: int, T: int) -> tuple:
     """Extension jobs shaped like the main path's: the query is a mutated
     piece of the target (so bands, gaps and z-drops all occur), with
     empty lanes, N codes and a spread of bands and h0."""
-    from tpubwa.config import MemOptions
+    from tpubwa_torch.config import MemOptions
 
     rng = np.random.default_rng(seed)
     opt = MemOptions()
@@ -209,7 +307,7 @@ def rescue_jobs(seed: int, J: int, Q: int, T: int) -> tuple:
     window holding a mutated copy of it (or not), minsc = min_seed_len *
     a; a third of the lanes are reverse passes with endsc = a score.
     Empty lanes and N codes included."""
-    from tpubwa.config import MemOptions
+    from tpubwa_torch.config import MemOptions
 
     rng = np.random.default_rng(seed)
     opt = MemOptions()
@@ -255,6 +353,21 @@ def _cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def same_fields(what: str, got, want) -> int:
+    """Holds every field of `got` to `want` (named tuples of tensors):
+    same shape and no element differing; returns max |got - want|."""
+    import torch
+
+    err = 0
+    for field, g, p in zip(want._fields, got, want):
+        check(g.shape == p.shape, f"{what}, field {field}: shape")
+        diff = int((g.to(torch.int64) - p.to(torch.int64)).abs().max()) \
+            if g.numel() else 0
+        check(diff == 0, f"{what}, field {field} (max |diff| {diff})")
+        err = max(err, diff)
+    return err
+
+
 def compare(kernel: str, name: str, args: tuple, kw: dict) -> dict:
     """Kernel vs its plain version on the card, same inputs: exact
     equality on every field, and both times (CUDA events).  These
@@ -265,43 +378,315 @@ def compare(kernel: str, name: str, args: tuple, kw: dict) -> dict:
     from tpubwa_torch.ops.localsw import localsw_batch
 
     plain = localsw_batch if kernel == "localsw" else _extend_core
-    fn = _counters()[kernel]
+    fn, = _counters()[kernel]
     n0 = fn.launches
     dev = torch.device("cuda")
     a = tuple(torch.as_tensor(x).to(dev) for x in args)
     got = fn(*a, **kw)
-    want = plain(*a, **kw)
+    stats: dict = {}
+    want = plain(*a, **kw) if kernel == "localsw" else \
+        plain(*a, **kw, stats=stats)
     torch.cuda.synchronize()
-    err = 0
-    for field, g, p in zip(want._fields, got, want):
-        diff = int((g.to(torch.int64) - p.to(torch.int64)).abs().max()) \
-            if g.numel() else 0
-        check(g.shape == p.shape and diff == 0,
-              f"{kernel} == plain on {name}, field {field} (max |diff| "
-              f"{diff})")
-        err = max(err, diff)
+    err = same_fields(f"{kernel} == plain on {name}", got, want)
     ms = _cuda_ms(lambda: fn(*a, **kw), reps=20)
     plain_ms = _cuda_ms(lambda: plain(*a, **kw), reps=2)
     fn.launches = n0
     J, Q = a[0].shape
     T = a[2].shape[1]
+    if kernel == "localsw":
+        # a job scans its rows up to the first one reaching endsc (that
+        # row is then te), else all tlen of them; qlen cells a row
+        qlen, tlen, endsc = a[1].clamp(0, Q), a[3].clamp(0, T), a[6]
+        rows = torch.where(want.score >= endsc, want.te + 1, tlen)
+        cells = int((rows.to(torch.int64) * qlen).sum())
+        ops = cells * OPS_SW_CELL
+    else:
+        cells = stats["cells"]
+        ops = cells * OPS_EXT_CELL
+    moved = _nbytes(*(x for x in a if x.dim() > 0 and x.shape[0] == J),
+                    *got)
+    b = bound(moved, ops)
     print(f"[{kernel}] {name}: J={J} Q={Q} T={T}: kernel == plain on all "
           f"{len(want)} fields (max |err| {err}); kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"plain {plain_ms:.3f} ms; {cells} cells visited, {moved} bytes: "
+          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+
+
+# ------------------------------------------------------- 2: K2, K3 ----
+
+def _timed(fn) -> tuple:
+    """(result, ms) of one call, by CUDA events (no warm-up: for the
+    plain versions, which take seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    res = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return res, a.elapsed_time(b)
+
+
+def first_batch(fq: str, n: int = BATCH) -> tuple:
+    """(codes int32 [n, L], lens int32 [n]) of the first n reads of `fq`,
+    padded as the pipeline pads them."""
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.io.fastq import stream_batches
+
+    batch = next(iter(stream_batches(fq, n, MemOptions().max_read_len)))
+    return (np.asarray(batch.codes, np.int32), np.asarray(batch.lens,
+                                                          np.int32))
+
+
+def _same_smems(tag: str, got, want) -> int:
+    """Whole buffers equal in dtype, shape and every element; returns
+    max |got - want|."""
+    for field, g, p in zip(want._fields, got, want):
+        check(g.dtype == p.dtype, f"K2 dtype, {tag}, field {field}")
+    return same_fields(f"K2 == plain, {tag}", got, want)
+
+
+def phase_k2(fixtures: dict) -> dict:
+    """K2 against the plain chains on the first batch of each fixture
+    ({"se": (fa, fq), "pe": (fa, fq1)}), narrow and wide; returns the
+    kernels-line entry (times and bound of the three rounds on the SE
+    batch, narrow)."""
+    import torch
+
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.ops import smem_chain as plain
+    from tpubwa_torch.ops import smem_chain_cuda as k2
+    from tpubwa_torch.ops.fm import DeviceIndex
+
+    opt = MemOptions()
+    dev = torch.device("cuda")
+    msl, cap, r2_cap = opt.min_seed_len, opt.max_smems_per_read, 32
+    entry = {}
+    with keep_launches():
+        for name, (fa, fq) in fixtures.items():
+            idx = FMIndex.load(fa)
+            codes, lens_h = first_batch(fq)
+            q = torch.as_tensor(codes, device=dev)
+            lens = torch.as_tensor(lens_h, device=dev)
+            B = q.shape[0]
+            G = 2 * B
+            for wide in (False, True):
+                layout = "wide" if wide else "narrow"
+                di = DeviceIndex.from_host(idx, dev, wide=wide)
+                tag = f"{name} {layout}"
+                steps = {r: torch.zeros(G if r == "r2" else B,
+                                        dtype=torch.int32, device=dev)
+                         for r in ("r1", "r2", "r3")}
+                # round 2's lanes: wave 0 of the candidates round 1 gives
+                _, src_tab, r1s, r1e, r1n, total = plain._smem_r1_prep(
+                    di, q, lens, min_seed_len=msl, split_len=opt.split_len,
+                    split_width=opt.split_width, out_cap=cap)
+                lanes = plain._r2_lanes(src_tab, r1s, r1e, r1n, total, 0,
+                                        out_cap=cap, G=G)
+                calls = {
+                    "r1": (k2.smem_round1_core, plain.smem_round1_chain,
+                           (di, q, lens), dict(min_seed_len=msl)),
+                    "r2": (k2.smem_through_core, plain.smem_through_chain,
+                           (di, q, lens, *lanes), dict(min_seed_len=msl)),
+                    "r3": (k2.smem_round3_core, plain.smem_round3_chain,
+                           (di, q, lens),
+                           dict(min_seed_len=msl,
+                                max_mem_intv=opt.max_mem_intv)),
+                }
+                ms, plain_ms, emitted, ovf = {}, {}, {}, {}
+                err = 0
+                for r, (core, ref, args, kw) in calls.items():
+                    full = r2_cap if r == "r2" else cap
+                    for c in (full, 1 if r == "r2" else 2):
+                        got = core(*args, **kw, cap=c, steps_out=steps[r])
+                        want, t_plain = _timed(
+                            lambda: ref(*args, **kw, cap=c))
+                        err = max(err, _same_smems(f"{tag} {r} cap {c}",
+                                                   got, want))
+                        if c == full:
+                            plain_ms[r] = t_plain
+                            emitted[r] = int(got.n.sum())
+                        else:
+                            ovf[r] = int(got.overflow.sum())
+                            # the repeat genome must reach the overflow
+                            # path; a random one emits too little for it
+                            check(ovf[r] > 0 or name != "pe",
+                                  f"{tag} {r} cap {c} overflows")
+                    ms[r] = _cuda_ms(lambda: core(*args, **kw, cap=full),
+                                     reps=5)
+                n_steps = {r: int(v.sum()) for r, v in steps.items()}
+                print(f"[k2] {tag}: B={B} L={q.shape[1]}, {total} round-2 "
+                      f"candidates ({min(total, G)} in wave 0 of G={G}): "
+                      "rounds 1, 2, 3 == plain on whole buffers at caps "
+                      f"{cap}/{r2_cap}/{cap} (emitted {emitted}) and at "
+                      f"2/1/2 (lanes overflowing {ovf}); kernel "
+                      + " ".join(f"{r} {ms[r]:.3f}" for r in ms)
+                      + " ms, plain "
+                      + " ".join(f"{r} {plain_ms[r]:.1f}" for r in ms)
+                      + f" ms; extension steps {n_steps}")
+                if name == "se" and not wide:
+                    # each step reads two checkpoint rows; what the table
+                    # holds is read at most once, the rest is reuse
+                    row_b = di.cp.element_size() * 8
+                    total_steps = sum(n_steps.values())
+                    item = di.cp.element_size()
+                    moved = (min(_nbytes(di.cp), 2 * row_b * total_steps)
+                             + 3 * _nbytes(q, lens) + _nbytes(*lanes)
+                             + (2 * B * cap + G * r2_cap) * 5 * item
+                             + (2 * B + G) * 5)
+                    b = bound(moved, total_steps * OPS_CHAIN_STEP)
+                    print(f"[k2] bound of the three rounds ({tag}): "
+                          f"{total_steps} steps x {OPS_CHAIN_STEP} ops, "
+                          f"{moved} bytes: {b['bound_ms']:.4f} ms by "
+                          f"{b['bound_by']}; as dependent gathers, "
+                          f"{2 * total_steps} rows of {row_b} bytes")
+                    entry = dict(max_abs_err=err, ms=sum(ms.values()),
+                                 plain_ms=sum(plain_ms.values()), **b)
+    return entry
+
+
+def gather_rate(idx) -> None:
+    """The card's random-gather rate on the checkpoint table (rows of 32
+    bytes at random addresses, the access of K2 and K5), table in L2."""
+    import torch
+
+    from tpubwa_torch.ops.fm import DeviceIndex
+
+    dev = torch.device("cuda")
+    cp = DeviceIndex.from_host(idx, dev, sa_stub=True).cp
+    n = 1 << 24
+    rows = torch.randint(0, cp.shape[0], (n,), device=dev)
+    ms = _cuda_ms(lambda: cp[rows], reps=5)
+    print(f"[gather] {n} random rows of {cp.shape[1] * cp.element_size()} "
+          f"bytes from a {_nbytes(cp)}-byte table (independent, torch "
+          f"index): {ms:.3f} ms = {n / ms / 1e6:.2f} G rows/s")
+
+
+def _ga_cells(qlen, tlen, w) -> int:
+    """Band cells of the fill of GA lanes."""
+    qlen, tlen, w = (np.asarray(a, np.int64) for a in (qlen, tlen, w))
+    cells = 0
+    for i in range(int(tlen.max()) if tlen.size else 0):
+        width = np.minimum(qlen, i + w + 1) - np.maximum(i - w, 0)
+        cells += int(np.where(i < tlen, np.maximum(width, 0), 0).sum())
+    return cells
+
+
+def _ga_steps(pack, dev_args: tuple, gaps: dict) -> int:
+    """Traceback steps these lanes really take: the segment lengths of the
+    plain version's pack, and for the lanes it leaves empty (nseg > GA_K)
+    the entries of the plain version's step rows that are not the end
+    mark."""
+    import torch
+
+    from tpubwa_torch.align.flatsam import GA_K
+    from tpubwa_torch.ops.global_align import global_align_cigar_batch
+
+    qD, tD, rows, qlen, tlen, w, mat = dev_args
+    steps = int((pack[:, 2:].to(torch.int32) >> 2).sum())
+    over = pack[:, 1] > GA_K
+    if bool(over.any()):
+        r = rows[over]
+        res = global_align_cigar_batch(
+            qD[r].to(torch.int32), qlen[over], tD[r].to(torch.int32),
+            tlen[over], mat, w[over], **gaps)
+        steps += int((res.steps != 3).sum())
+    return steps
+
+
+def compare_ga(name: str, dev_args: tuple, gaps: dict) -> dict:
+    """K3's pack against _ga_rows_plain on lanes (qD, tD, rows, qlen,
+    tlen, w, mat) already on the card: exact, both times, the bound."""
+    import torch
+
+    from tpubwa_torch.align.flatsam import GA_K, _ga_rows, _ga_rows_plain
+
+    with keep_launches():
+        got = _ga_rows(*dev_args, **gaps)
+        want, plain_ms = _timed(
+            lambda: _ga_rows_plain(*dev_args, **gaps, ga_k=GA_K))
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"K3 pack shape and dtype, {name}")
+        diff = int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) \
+            if got.numel() else 0
+        check(diff == 0, f"K3 pack == plain on {name} (max |diff| {diff})")
+        ms = _cuda_ms(lambda: _ga_rows(*dev_args, **gaps), reps=10)
+    qlen, tlen, w = (a.cpu().numpy() for a in dev_args[3:6])
+    cells = _ga_cells(qlen, tlen, w)
+    steps = _ga_steps(want, dev_args, gaps)
+    M = int(qlen.size)
+    moved = int(qlen.sum() + tlen.sum()) + M * (8 + 12) + _nbytes(got)
+    b = bound(moved, cells * OPS_GA_CELL + steps * OPS_GA_STEP)
+    nseg = want[:, 1]
+    print(f"[k3] {name}: M={M} lanes of Q={dev_args[0].shape[1]} "
+          f"T={dev_args[1].shape[1]}: pack == plain ({int((nseg > 1).sum())} "
+          f"gapped, {int((nseg > GA_K).sum())} with nseg > {GA_K}); kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms; {cells} band cells, "
+          f"{steps} traceback steps, "
+          f"{moved} bytes: bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, **b)
+
+
+def phase_k3() -> dict:
+    """K3 on synthetic lanes: the pack on 8192 of them, the executor's
+    step rows (its second output) on 512, against the plain versions."""
+    import torch
+
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.ops.global_align import global_align_cigar_batch
+    from tpubwa_torch.ops.global_align_cuda import global_align_cigar_core
+    from tpubwa_torch.utils.sim import ga_lanes
+
+    opt = MemOptions()
+    gaps = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+                e_ins=opt.e_ins)
+    dev = torch.device("cuda")
+    n = BATCH + 9
+    qD, tD, qlen, tlen, w = ga_lanes(5, n, w0=opt.w)
+    rows = np.random.default_rng(0).permutation(n)[:BATCH].astype(np.int64)
+    check((tlen[rows] == 1).any() and (qlen[rows] == 1).any()
+          and (w[rows] == 4 * opt.w).any(),
+          "synthetic lanes hold tlen 1, qlen 1 and w at its cap")
+    res = compare_ga("synthetic lanes", tuple(
+        torch.as_tensor(a, device=dev) for a in (
+            qD, tD, rows, qlen[rows], tlen[rows], w[rows],
+            opt.score_matrix())), gaps)
+    sub = rows[:512]
+    args = [torch.as_tensor(a, device=dev) for a in (
+        qD[sub].astype(np.int32), qlen[sub], tD[sub].astype(np.int32),
+        tlen[sub], opt.score_matrix(), w[sub])]
+    with keep_launches():
+        got = global_align_cigar_core(*args, **gaps)
+        want = global_align_cigar_batch(*args, **gaps)
+        torch.cuda.synchronize()
+    check(torch.equal(got.score, want.score)
+          and torch.equal(got.steps, want.steps),
+          "K3 step rows and scores == plain on 512 synthetic lanes")
+    print("[k3] executor entry: 512 lanes, scores and whole step rows == "
+          "plain")
+    return res
+
 
 
 # ---------------------------------------------------------------- 3 ----
 
-def phase_golden(device: str = "cuda") -> None:
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from test_golden_sam import GOLDEN_DIR, _build_fixture, _strip_pg
+def _strip_pg(sam: str) -> str:
+    """Without the @PG line, which carries the command line."""
+    return "".join(ln for ln in sam.splitlines(keepends=True)
+                   if not ln.startswith("@PG"))
 
+
+def phase_golden(device: str = "cuda") -> None:
     from tpubwa_torch.align.pipeline import align_fastq
+    from tpubwa_torch.utils.sim import golden_fixture
 
     d = os.path.join(WORK, "golden")
     os.makedirs(d, exist_ok=True)
-    ref, se_fq, fq1, fq2 = _build_fixture(d)
+    ref, se_fq, fq1, fq2 = golden_fixture(d)
     runs = [("se", se_fq, None, "t"), ("pe", fq1, fq2, "t"),
             ("pe", fq1, fq2, "b")]
     for kind, r1, r2, layout in runs:
@@ -319,6 +704,8 @@ def phase_golden(device: str = "cuda") -> None:
               f"{device} (layout {layout})")
         core = "extend_b" if layout == "b" else "extend"
         check(n[core] > 0, f"golden {kind} layout {layout} launched {core}")
+        check(n["smem_chain"] > 0 and n["global_align"] > 0,
+              f"golden {kind} launched K2 and K3")
         print(f"[golden] tests/golden/{kind}.sam reproduced byte for byte on "
               f"{device}, layout {layout} ({len(got)} bytes, "
               f"{time.monotonic() - t:.1f} s; launches {n})")
@@ -327,8 +714,8 @@ def phase_golden(device: str = "cuda") -> None:
 # ---------------------------------------------------------------- 4 ----
 
 def write_fasta(path: str, codes: np.ndarray) -> None:
-    from tpubwa.index.fmindex import FMIndex
-    from tpubwa.utils.dna import decode
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.utils.dna import decode
 
     with open(path, "w") as f:
         f.write(">benchref\n")
@@ -338,11 +725,64 @@ def write_fasta(path: str, codes: np.ndarray) -> None:
     FMIndex.from_fasta(path).save(path)
 
 
+def capture_first(module, attr: str, captured: list):
+    """Context manager: module.attr runs as it is, and the arguments of
+    its first call are kept (tensors cloned) in `captured`."""
+    import contextlib
+
+    import torch
+
+    fn = getattr(module, attr)
+
+    def capturing(*args, **kw):
+        if not captured:
+            captured.append((tuple(a.clone() if torch.is_tensor(a) else a
+                                   for a in args), dict(kw)))
+        return fn(*args, **kw)
+
+    @contextlib.contextmanager
+    def cm():
+        setattr(module, attr, capturing)
+        try:
+            yield
+        finally:
+            setattr(module, attr, fn)
+
+    return cm()
+
+
+def profiled_se(aligner, fq: str, tag: str) -> None:
+    """One SE pass under torch.profiler: the number of device kernels,
+    the device time and its share of the pass."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trace = os.path.join(WORK, f"profile_{tag}.json")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed_se(aligner, fq)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    check(len(kern) > 0, "the profiler traced device kernels")
+    dev_s = sum(e["dur"] for e in kern) / 1e6
+    print(f"[{tag}] profiled pass: {len(kern)} device kernels, "
+          f"{dev_s:.3f} s of device time in {wall:.2f} s = "
+          f"{100 * dev_s / wall:.1f}% busy (the same pass before K2 and K3: "
+          "637,745 kernels, 1.081 s in 18.74 s = 5.8%)")
+    by_name: dict = {}
+    for e in kern:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[{tag}]   {us / 1e3:9.3f} ms  {name[:90]}")
+
+
 def realistic_fixture() -> tuple[str, str]:
     """bench.py's _ensure_fixture recipe (random genome, seed 42; reads
     seed 7), built in the checkout's build directory."""
-    from tpubwa.io.fasta import read_fasta
-    from tpubwa.utils import sim
+    from tpubwa_torch.io.fasta import read_fasta
+    from tpubwa_torch.utils import sim
 
     os.makedirs(WORK, exist_ok=True)
     fa = os.path.join(WORK, f"ref_{REF_LEN}.fa")
@@ -386,18 +826,18 @@ def print_phases(tag: str, timers) -> None:
         print(f"[{tag}]   {name}: {tot:.3f} s (n={timers.counts[name]})")
 
 
-def phase_se(device: str = "cuda") -> dict:
+def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
     """Returns the captured core inputs {"left": (args, kw), "right":
-    (args, kw)} of the counted run, and the fixture, aligner and SAM body
-    for phases 7-9."""
+    (args, kw)} and the first _ga_rows call's of the counted run, its
+    launches, and the fixture, aligner and SAM body for phases 7-9."""
     import torch
 
-    from tpubwa.config import MemOptions
-    from tpubwa.index.fmindex import FMIndex
+    from tpubwa_torch.align import flatsam
     from tpubwa_torch.align.pipeline import Aligner, run_se_pipeline
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.index.fmindex import FMIndex
     from tpubwa_torch.ops.extend_cuda import extend_core
 
-    fa, fq = realistic_fixture()
     idx = FMIndex.load(fa)
     aligner = Aligner(idx, MemOptions(batch_reads=BATCH), device=device)
 
@@ -413,18 +853,25 @@ def phase_se(device: str = "cuda") -> dict:
         return extend_core(*args, **kw)
 
     aligner.ext_core = capturing_core
+    ga_captured: list = []
     out = io.StringIO()
-    _sync(device)
-    reset_launches()
-    t = time.monotonic()
-    run_se_pipeline(aligner, fq, out)
-    _sync(device)
-    cold = time.monotonic() - t
-    launches = read_launches()
+    with capture_first(flatsam, "_ga_rows", ga_captured):
+        _sync(device)
+        reset_launches()
+        t = time.monotonic()
+        run_se_pipeline(aligner, fq, out)
+        _sync(device)
+        cold = time.monotonic() - t
+        launches = read_launches()
     print(f"[se] counted run: {N_READS} reads in {cold:.2f} s (cold); "
           f"launches {launches}")
     check(launches["extend"] > 0, "the SE path launched the extension "
           "kernel")
+    check(launches["smem_chain"] > 0, "the SE path launched K2 (SMEM "
+          "chains)")
+    check(launches["global_align"] > 0, "the SE path launched K3 (global "
+          "alignment)")
+    check(len(ga_captured) == 1, "first _ga_rows call captured")
     check(set(captured) == {"left", "right"},
           "left and right core inputs captured")
     gate(out.getvalue())
@@ -441,8 +888,9 @@ def phase_se(device: str = "cuda") -> dict:
     print(f"[se] warm run: {N_READS} reads in {warm:.2f} s = "
           f"{N_READS / warm:.1f} reads/s (batch {BATCH})")
     print_phases("se", aligner.timers)
-    return dict(captured=captured, fa=fa, fq=fq, idx=idx, aligner=aligner,
-                body=body)
+    profiled_se(aligner, fq, "se")
+    return dict(captured=captured, ga=ga_captured[0], launches=launches,
+                fa=fa, fq=fq, idx=idx, aligner=aligner, body=body)
 
 
 # ---------------------------------------------------------------- 5 ----
@@ -450,16 +898,16 @@ def phase_se(device: str = "cuda") -> dict:
 def pe_fixture() -> tuple[str, str, str]:
     """bench.py's PE chr21-style recipe (TPUBWA_BENCH_PE=1
     TPUBWA_BENCH_STYLE=chr21), built in the checkout's build directory."""
-    from bench import _repeat_genome   # framework-free; imports numpy only
-    from tpubwa.io.fasta import read_fasta
-    from tpubwa.utils import sim
+    from tpubwa_torch.io.fasta import read_fasta
+    from tpubwa_torch.utils import sim
+    from tpubwa_torch.utils.simgenome import repeat_genome
 
     os.makedirs(WORK, exist_ok=True)
     fa = os.path.join(WORK, f"ref_{REF_LEN}_chr21.fa")
     fq1 = os.path.join(WORK, f"pairs_{REF_LEN}_{N_PAIRS}_1.fq")
     fq2 = os.path.join(WORK, f"pairs_{REF_LEN}_{N_PAIRS}_2.fq")
     t = time.monotonic()
-    write_fasta(fa, _repeat_genome(np.random.default_rng(42), REF_LEN))
+    write_fasta(fa, repeat_genome(np.random.default_rng(42), REF_LEN))
     contigs, codes, _ = read_fasta(fa)
     r1, r2 = sim.simulate_pairs(codes, contigs, N_PAIRS, length=150,
                                 err=0.01, seed=7)
@@ -495,32 +943,23 @@ def pe_gate(text: str) -> None:
           f"(sha256 {PE_SAM_SHA256})")
 
 
-def phase_pe(device: str = "cuda") -> tuple[dict, dict, tuple, tuple]:
+def phase_pe(pe_files: tuple, device: str = "cuda") -> tuple:
     """Returns (launches of the counted layout-t run, launches of the
     layout-b pass, the first captured mate-rescue round (args, kw), the
-    fixture's (fa, fq1, fq2))."""
-    import torch
-
-    from tpubwa.config import MemOptions
-    from tpubwa.index.fmindex import FMIndex
-    from tpubwa_torch.align import pair
+    first captured _ga_rows call (args, kw))."""
+    from tpubwa_torch.align import flatsam, pair
     from tpubwa_torch.align.pipeline import EXT_CORES, Aligner
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.index.fmindex import FMIndex
 
-    fa, fq1, fq2 = pe_fixture()
+    fa, fq1, fq2 = pe_files
     idx = FMIndex.load(fa)
     aligner = Aligner(idx, MemOptions(batch_reads=BATCH), device=device)
-    core = pair.localsw_core
     captured: list = []
-
-    def capturing(*args, **kw):
-        if not captured:
-            captured.append((tuple(a.clone() if torch.is_tensor(a) else a
-                                   for a in args), dict(kw)))
-        return core(*args, **kw)
-
-    pair.localsw_core = capturing
-    try:
-        out = io.StringIO()
+    ga_captured: list = []
+    out = io.StringIO()
+    with capture_first(pair, "localsw_core", captured), \
+            capture_first(flatsam, "_ga_rows", ga_captured):
         _sync(device)
         reset_launches()
         t = time.monotonic()
@@ -528,14 +967,17 @@ def phase_pe(device: str = "cuda") -> tuple[dict, dict, tuple, tuple]:
         _sync(device)
         cold = time.monotonic() - t
         launches = read_launches()
-    finally:
-        pair.localsw_core = core
     check(rc == 0, "PE run exits 0")
     print(f"[pe] counted run (layout t): {2 * N_PAIRS} reads in "
           f"{cold:.2f} s (cold); launches {launches}")
     check(launches["extend"] > 0, "the PE path launched K1")
     check(launches["localsw"] > 0, "the PE path launched K4 (mate rescue)")
+    check(launches["smem_chain"] > 0, "the PE path launched K2 (SMEM "
+          "chains)")
+    check(launches["global_align"] > 0, "the PE path launched K3 (global "
+          "alignment)")
     check(len(captured) == 1, "first mate-rescue round captured")
+    check(len(ga_captured) == 1, "first _ga_rows call captured")
     pe_gate(out.getvalue())
 
     b_launches = {}
@@ -560,7 +1002,7 @@ def phase_pe(device: str = "cuda") -> tuple[dict, dict, tuple, tuple]:
                   "the layout-b pass launched K1b and not K1")
             pe_gate(out.getvalue())
             b_launches = n
-    return launches, b_launches, captured[0], (fa, fq1, fq2)
+    return launches, b_launches, captured[0], ga_captured[0]
 
 
 # ---------------------------------------------------------------- 6 ----
@@ -570,7 +1012,7 @@ def phase_ablation() -> dict:
     B=4096, Q=192, T=256, target = copy of the query, w=100, h0=1."""
     import torch
 
-    from tpubwa.config import MemOptions
+    from tpubwa_torch.config import MemOptions
     from tpubwa_torch.ops.extend import _extend_core
     from tpubwa_torch.ops.extend_cuda import VARIANTS, extend_b_variant
 
@@ -587,16 +1029,25 @@ def phase_ablation() -> dict:
         np.full(B, 1, np.int32), np.zeros(B, np.int32))]
     kw = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
               e_ins=opt.e_ins, zdrop=100, mat_max=opt.a)
+    extend_b_variant.launches = 0
     got = extend_b_variant("full", *args, **kw)
     want = _extend_core(*args, **kw)
     torch.cuda.synchronize()
-    for field, g, p in zip(want._fields, got, want):
-        check(torch.equal(g, p), f"ablation full variant == plain, {field}")
+    err = same_fields("ablation full variant == plain", got, want)
     times = {v: _cuda_ms(lambda v=v: extend_b_variant(v, *args, **kw),
                          reps=10) for v in VARIANTS}
+    stats: dict = {}
+    plain_ms = _cuda_ms(lambda: _extend_core(*args, **kw, stats=stats),
+                        reps=1)
+    b = bound(_nbytes(*(x for x in args if x.shape[0] == B), *got),
+              stats["cells"] * OPS_EXT_CELL)
     print("[ablate] K1b variants, B=4096 Q=192 T=256 (full == plain): "
-          + "  ".join(f"{v} {ms:.3f} ms" for v, ms in times.items()))
-    return times
+          + "  ".join(f"{v} {ms:.3f} ms" for v, ms in times.items())
+          + f"; plain {plain_ms:.1f} ms; {stats['cells']} cells: bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}; "
+          f"{extend_b_variant.launches} launches")
+    return dict(max_abs_err=err, ms=times["full"], plain_ms=plain_ms,
+                launches=extend_b_variant.launches, **b)
 
 
 # ---------------------------------------------------------------- 7 ----
@@ -641,10 +1092,22 @@ def phase_k5(idx) -> dict:
                 plain_ms = _cuda_ms(
                     lambda: sa_lookup_sampled(di, ss, rows, shift), reps=2)
                 steps = float((sa % (1 << shift)).double().mean())
-                times[layout] = dict(ms=ms, plain_ms=plain_ms)
+                # a row takes sa mod 2^shift LF steps and one more probe;
+                # the tables are read at most once, the rest is reuse
+                n_steps = int((sa % (1 << shift)).sum())
+                tables = _nbytes(di.cp, ss.blocks, ss.vals)
+                row_b = (di.cp.shape[1] + ss.blocks.shape[1]) \
+                    * di.cp.element_size()
+                moved = 2 * _nbytes(rows) + min(tables,
+                                                (n_steps + n) * row_b)
+                times[layout] = dict(
+                    ms=ms, plain_ms=plain_ms,
+                    **bound(moved, (n_steps + n) * OPS_LF_STEP))
                 line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                          f"mean LF steps {steps:.3f} (of at most "
-                         f"{(1 << shift) - 1})")
+                         f"{(1 << shift) - 1}); {moved} bytes: bound "
+                         f"{times[layout]['bound_ms']:.4f} ms by "
+                         f"{times[layout]['bound_by']}")
             print(line)
     k5.launches = n0
     return dict(max_abs_err=err, **times["narrow"])
@@ -668,8 +1131,8 @@ def phase_index_modes(se: dict, pe_files: tuple) -> dict:
     """Returns the launches of the sampled-SA SE run (a)."""
     import torch
 
-    from tpubwa.config import MemOptions
-    from tpubwa.index.fmindex import FMIndex
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.index.fmindex import FMIndex
     from tpubwa_torch.align import pair
     from tpubwa_torch.align.pipeline import Aligner
     from tpubwa_torch.ops.fm import DeviceIndex, build_sampled_sa
@@ -876,41 +1339,66 @@ def main() -> int:
     res["localsw"] = [compare("localsw", f"random rescue jobs T={T}",
                               *rescue_jobs(T, J_SW, Q_SW, T))
                       for T in (1024, 256)]
+    fa, fq = realistic_fixture()
+    pe_files = pe_fixture()
+    res["smem_chain"] = [phase_k2({"se": (fa, fq),
+                                   "pe": (pe_files[0], pe_files[1])})]
+    res["global_align"] = [phase_k3()]
     phase_golden()
-    se = phase_se()
+    se = phase_se(fa, fq)
+    gather_rate(se["idx"])
     for side, (a, k) in sorted(se["captured"].items()):
         for kern in ("extend", "extend_b"):
             res[kern].append(compare(kern, f"SE batch 1 {side} core", a, k))
-    pe_launches, b_launches, (sw_args, sw_kw), pe_files = phase_pe()
+    ga_real = compare_ga("SE batch 1, first _ga_rows call (the non-exact "
+                         "lanes)", *se["ga"])
+    res["global_align"].append(ga_real)
+    pe_launches, b_launches, (sw_args, sw_kw), pe_ga = phase_pe(pe_files)
     sw_real = compare("localsw", "PE batch 1 first rescue round", sw_args,
                       sw_kw)
     res["localsw"].append(sw_real)
-    phase_ablation()
+    res["global_align"].append(compare_ga(
+        "PE batch 1, first _ga_rows call", *pe_ga))
+    res["extend_b_variant"] = [phase_ablation()]
     k5 = phase_k5(se["idx"])
     res["sa_sampled"] = [k5]
     k5_launches = phase_index_modes(se, pe_files)
     phase_serving(se)
 
     check("jax" not in sys.modules, "the port ran without importing jax")
+    check(not [m for m in sys.modules
+               if m == "tpubwa" or m.startswith("tpubwa.")],
+          "the port ran without importing the JAX package")
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
 
-    # launches: each kernel's count in the run that drives it (K1 and K4
-    # in phase 5's counted layout-t run, K1b in its layout-b pass, K5 in
-    # phase 8(a)'s --sa-shift 5 run); error over every comparison; times
-    # at the path's shapes (K1/K1b: the full wave J=8192 Q=192 T=768; K4:
-    # the PE run's first rescue round; K5: every row of the SE index at
-    # shift 5, narrow)
+    # launches: each kernel's count in the run that drives it (K2, K1, K4
+    # and K3 in phase 5's counted layout-t run, K1b in its layout-b pass,
+    # K5 in phase 8(a)'s --sa-shift 5 run, K1c in phase 6, the only path
+    # that runs it); error over every comparison; times and bounds at the
+    # path's shapes (K1/K1b: the full wave J=8192 Q=192 T=768; K2: the
+    # three rounds on the SE run's first batch; K3: the SE run's first
+    # _ga_rows call; K4: the PE run's first rescue round; K5: every row of
+    # the SE index at shift 5, narrow)
     launches = dict(extend=pe_launches["extend"],
                     extend_b=b_launches["extend_b"],
+                    extend_b_variant=res["extend_b_variant"][0]["launches"],
+                    smem_chain=pe_launches["smem_chain"],
+                    global_align=pe_launches["global_align"],
                     localsw=pe_launches["localsw"],
                     sa_sampled=k5_launches["sa_sampled"])
+    print(f"[launches] SE counted run: {se['launches']}")
     timing = dict(extend=res["extend"][0], extend_b=res["extend_b"][0],
+                  extend_b_variant=res["extend_b_variant"][0],
+                  smem_chain=res["smem_chain"][0], global_align=ga_real,
                   localsw=sw_real, sa_sampled=k5)
+    for k, n in launches.items():
+        check(n > 0, f"{k} was launched on the path that runs it")
     print(json.dumps({"kernels": [dict(
         name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
         launches=launches[k],
         max_abs_err=max(r["max_abs_err"] for r in res[k]),
-        ms=timing[k]["ms"], plain_ms=timing[k]["plain_ms"])
+        **{f: timing[k][f] for f in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")})
         for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

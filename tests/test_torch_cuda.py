@@ -2,11 +2,14 @@
 
 K1 (csrc/extend.cu) and K1b (csrc/extend_b.cu) against ``_extend_core``,
 K4 (csrc/localsw.cu) against ``localsw_batch``, K5 (csrc/sa_sampled.cu)
-against ``sa_lookup_sampled``, exact on every field, and each wrapper's
-launch counter; and a ``-t 4`` SE run equal to ``-t 1`` on the golden
-fixture.  Needs a CUDA card and nvcc (the kernels
-are compiled on first use); skipped where torch sees no GPU.  Imports no
-jax, so it runs on a machine without it:
+against ``sa_lookup_sampled``, K2 (csrc/smem_chain.cu; three rounds,
+int32 and int64) against the plain chains, K3 (csrc/global_align.cu; pack
+and step rows) against ``_ga_rows_plain`` and
+``global_align_cigar_batch``, exact on every field, and each wrapper's
+launch counter; and a ``-t 4`` SE run equal to ``-t 1``.  Needs a CUDA
+card and nvcc (the kernels are compiled on first use); skipped where
+torch sees no GPU.  Imports neither jax nor the JAX package, so it runs on
+a machine without them:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -14,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpubwa.config import MemOptions
+from tpubwa_torch.config import MemOptions
 
 OPT = MemOptions()
 KW = dict(o_del=OPT.o_del, e_del=OPT.e_del, o_ins=OPT.o_ins, e_ins=OPT.e_ins,
@@ -111,8 +114,8 @@ def test_localsw_kernel_matches_plain_on_card(cuda, J, Q, T):
 @pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
 @pytest.mark.parametrize("shift", [2, 4, 5])
 def test_sa_sampled_kernel_matches_plain_on_card(cuda, shift, wide):
-    from tpubwa.index.fmindex import FMIndex
-    from tpubwa.io.fasta import Contig
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.io.fasta import Contig
     from tpubwa_torch.ops.fm import (DeviceIndex, build_sampled_sa,
                                      sa_lookup_sampled)
     from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
@@ -137,18 +140,175 @@ def test_sa_sampled_kernel_matches_plain_on_card(cuda, shift, wide):
     np.testing.assert_array_equal(got.cpu().numpy(), idx.sa[rows])
 
 
+def _chain_setup(cuda, wide, n=48_000, B=96, L=160):
+    """A repeat-structured index on the card and a read batch with an N
+    run, an empty row, a row shorter than a seed and a full-width row."""
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.io.fasta import Contig
+    from tpubwa_torch.ops.fm import DeviceIndex
+    from tpubwa_torch.utils import sim
+    from tpubwa_torch.utils.dna import encode
+    from tpubwa_torch.utils.simgenome import repeat_genome
+
+    codes = repeat_genome(np.random.default_rng(7), n)
+    contigs = [Contig("c1", n, 0)]
+    idx = FMIndex.build(contigs, codes)
+    reads = sim.simulate_reads(codes, contigs, B, length=150, err=0.02,
+                               indel=0.002, seed=3)
+    q = np.full((B, L), 4, np.int32)
+    lens = np.zeros(B, np.int32)
+    for b, (_, seq, _) in enumerate(reads):
+        ln = len(seq) - 5 * (b % 4)
+        q[b, :ln] = encode(seq[:ln])
+        lens[b] = ln
+    q[5, 40:44] = 4
+    lens[6] = 0
+    lens[7] = 12
+    q[10] = np.resize(q[10, :lens[10]], L)
+    lens[10] = L
+    di = DeviceIndex.from_host(idx, cuda, wide=wide)
+    return (di, torch.as_tensor(q, device=cuda),
+            torch.as_tensor(lens, device=cuda))
+
+
+def _same_smems(got, want):
+    for name, g, p in zip(want._fields, got, want):
+        assert g.dtype == p.dtype and g.shape == p.shape, name
+        assert torch.equal(g.cpu(), p.cpu()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("rnd", ["round1", "round2", "round3"])
+def test_smem_chain_kernel_matches_plain_on_card(cuda, rnd, wide):
+    """K2 against the plain chains on whole buffers (k, l, s, start, end,
+    n, overflow), at the default cap and at one that overflows."""
+    from tpubwa_torch.ops import smem_chain as plain
+    from tpubwa_torch.ops import smem_chain_cuda as k2
+
+    di, q, lens = _chain_setup(cuda, wide)
+    idt = torch.int64 if wide else torch.int32
+    B, L = q.shape
+    for cap in (32, 2):
+        if rnd == "round1":
+            core, args = k2.smem_round1_core, (di, q, lens)
+            kw = dict(min_seed_len=19, cap=cap)
+            ref = plain.smem_round1_chain
+        elif rnd == "round3":
+            core, args = k2.smem_round3_core, (di, q, lens)
+            kw = dict(min_seed_len=19, max_mem_intv=20, cap=cap)
+            ref = plain.smem_round3_chain
+        else:
+            rng = np.random.default_rng(11)
+            G = 4 * B
+            rd = rng.integers(0, B, G).astype(np.int32)
+            mid = rng.integers(0, L, G).astype(np.int32)
+            thr = rng.integers(1, 5, G)
+            act = rng.random(G) > 0.2
+            core = k2.smem_through_core
+            args = (di, q, lens, torch.as_tensor(rd, device=cuda),
+                    torch.as_tensor(mid, device=cuda),
+                    torch.as_tensor(thr, device=cuda).to(idt),
+                    torch.as_tensor(act, device=cuda))
+            kw = dict(min_seed_len=19, cap=cap)
+            ref = plain.smem_through_chain
+        n0 = core.launches
+        steps = torch.zeros(args[3].shape[0] if rnd == "round2" else B,
+                            dtype=torch.int32, device=cuda)
+        got = core(*args, **kw, steps_out=steps)
+        torch.cuda.synchronize()
+        assert core.launches == n0 + 1
+        want = ref(*args, **kw)
+        _same_smems(got, want)
+        assert int(got.n.sum()) > 20 and int(steps.sum()) > 1000
+        assert bool(got.overflow.any()) == (cap == 2)
+    # no lanes: empty buffers and no launch
+    n0 = core.launches
+    if rnd == "round2":
+        empty = core(di, q, lens, *(a[:0] for a in args[3:]), **kw)
+    else:
+        empty = core(di, q[:0], lens[:0], **kw)
+    assert tuple(empty.k.shape) == (0, 2) and tuple(empty.n.shape) == (0,)
+    assert core.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+def test_collect_smems_on_card_matches_cpu(cuda, wide):
+    """The whole three-round collection through K2 equals the plain
+    versions' on the CPU."""
+    from tpubwa_torch.ops import smem_chain_cuda as k2
+    from tpubwa_torch.ops.fm import DeviceIndex
+    from tpubwa_torch.ops.smem_chain import collect_smems_chain
+
+    di, q, lens = _chain_setup(cuda, wide)
+    cpu_di = DeviceIndex(*(t.cpu() if torch.is_tensor(t) else t for t in di))
+    n0 = (k2.smem_round1_core.launches, k2.smem_through_core.launches,
+          k2.smem_round3_core.launches)
+    got = collect_smems_chain(di, q, lens, r2_lanes=64)
+    want = collect_smems_chain(cpu_di, q.cpu(), lens.cpu(), r2_lanes=64)
+    _same_smems(got, want)
+    assert k2.smem_round1_core.launches == n0[0] + 1
+    assert k2.smem_through_core.launches > n0[1]
+    assert k2.smem_round3_core.launches == n0[2] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gaps", [dict(o_del=6, e_del=1, o_ins=6, e_ins=1),
+                                  dict(o_del=4, e_del=2, o_ins=7, e_ins=1)],
+                         ids=["default", "skewed"])
+def test_global_align_kernel_matches_plain_on_card(cuda, gaps):
+    """K3's pack against ``_ga_rows_plain`` and its step rows against
+    ``global_align_cigar_batch``, on ``utils.sim.ga_lanes`` (long
+    gaps, nseg > GA_K, one-base target and query, band at cap and
+    floor), more lanes than persistent blocks."""
+    from tpubwa_torch.align.flatsam import GA_K, _ga_rows, _ga_rows_plain
+    from tpubwa_torch.ops import global_align_cuda as k3
+    from tpubwa_torch.ops.global_align import global_align_cigar_batch
+    from tpubwa_torch.utils.sim import ga_lanes as make_lanes
+
+    n = 6000
+    qD, tD, qlen, tlen, w = make_lanes(5, n)
+    rows = np.random.default_rng(0).permutation(n)[:n - 7].astype(np.int64)
+    dev = [torch.as_tensor(a, device=cuda)
+           for a in (qD, tD, rows, qlen[rows], tlen[rows], w[rows],
+                     OPT.score_matrix())]
+    n0 = k3.ga_pack.launches
+    got = _ga_rows(*dev, **gaps)
+    torch.cuda.synchronize()
+    assert k3.ga_pack.launches == n0 + 1
+    want = _ga_rows_plain(*dev, **gaps, ga_k=GA_K)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want.cpu())
+    assert int((want[:, 1] > GA_K).sum()) > 10
+
+    empty = _ga_rows(dev[0], dev[1], dev[2][:0], dev[3][:0], dev[4][:0],
+                     dev[5][:0], dev[6], **gaps)
+    assert tuple(empty.shape) == (0, 2 + GA_K)
+    assert k3.ga_pack.launches == n0 + 1          # no launch for no lanes
+
+    m = 512                                       # the executor's entry
+    sub = rows[:m]
+    args = [torch.as_tensor(a, device=cuda) for a in (
+        qD[sub].astype(np.int32), qlen[sub], tD[sub].astype(np.int32),
+        tlen[sub], OPT.score_matrix(), w[sub])]
+    n0 = k3.global_align_cigar_core.launches
+    got = k3.global_align_cigar_core(*args, **gaps)
+    torch.cuda.synchronize()
+    assert k3.global_align_cigar_core.launches == n0 + 1
+    want = global_align_cigar_batch(*args, **gaps)
+    assert torch.equal(got.score.cpu(), want.score.cpu())
+    assert torch.equal(got.steps.cpu(), want.steps.cpu())
+
+
 @pytest.mark.cuda
 def test_threads_se_matches_single_on_card(cuda, tmp_path):
     import io
-    import os
-    import sys
 
     from tpubwa_torch.align.pipeline import align_fastq
+    from tpubwa_torch.utils.sim import golden_fixture
 
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_golden_sam import _build_fixture
-
-    ref, se_fq, _, _ = _build_fixture(str(tmp_path))
+    ref, se_fq, _, _ = golden_fixture(str(tmp_path))
     texts = []
     for threads in (1, 4):
         out = io.StringIO()

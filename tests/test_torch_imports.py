@@ -1,11 +1,14 @@
-"""The port runs without jax: in a fresh interpreter, importing
+"""The port stands alone: in a fresh interpreter, importing
 ``tpubwa_torch.align.pipeline`` and ``tpubwa_torch.cli`` and aligning a
-few reads (sampled SA, two workers) and a few pairs on the CPU leaves
-``jax`` out of ``sys.modules``.  Also the CLI's refusals: no silent CPU
+few reads (sampled SA, two workers) and a few pairs on the CPU, with the
+fixture made by the port's own copies, leaves ``jax`` and every ``tpubwa``
+module out of ``sys.modules``; and no source of the port, nor
+``chip_smoke.py``, imports ``tpubwa``.  Also the CLI's refusals: no silent CPU
 fallback for ``--device cuda`` without a card, the JAX CLI's checks of
 ``--hosts``, and a clear error for what is outside the port (a device
 mesh, ``--coordinator``)."""
 import os
+import re
 import subprocess
 import sys
 
@@ -20,9 +23,9 @@ import torch
 torch.set_num_threads(1)
 import tpubwa_torch.align.pipeline
 import tpubwa_torch.cli
-from tpubwa.index.fmindex import FMIndex
-from tpubwa.io.fasta import Contig
-from tpubwa.utils import sim
+from tpubwa_torch.index.fmindex import FMIndex
+from tpubwa_torch.io.fasta import Contig
+from tpubwa_torch.utils import sim
 
 d = sys.argv[1]
 codes = np.random.default_rng(1).integers(0, 4, 8000).astype(np.uint8)
@@ -41,6 +44,8 @@ rc = tpubwa_torch.cli.main(["mem", "--device", "cpu", "--ext-layout", "b",
                             d + "/ref.fa", d + "/p1.fq", d + "/p2.fq"])
 assert rc == 0, rc
 print("JAX_LOADED", "jax" in sys.modules, file=sys.stderr)
+print("TPUBWA_LOADED", sorted(m for m in sys.modules if m == "tpubwa"
+                              or m.startswith("tpubwa.")), file=sys.stderr)
 """
 
 
@@ -54,6 +59,7 @@ def test_port_runs_without_jax(tmp_path):
     p = _run(["-c", SCRIPT, str(tmp_path)], tmp_path)
     assert p.returncode == 0, p.stderr
     assert "JAX_LOADED False" in p.stderr
+    assert "TPUBWA_LOADED []" in p.stderr
     sam = [ln.split("\t") for ln in p.stdout.splitlines()
            if not ln.startswith("@")]
     se = [f for f in sam if not int(f[1]) & 1]
@@ -62,6 +68,27 @@ def test_port_runs_without_jax(tmp_path):
     assert sum(not int(f[1]) & 4 for f in se) >= 10
     assert sum(not int(f[1]) & 0x900 for f in pe) == 32
     assert sum(int(f[1]) & 2 > 0 for f in pe) >= 24      # proper pairs
+
+
+def test_port_sources_do_not_import_tpubwa():
+    """No ``import tpubwa`` / ``from tpubwa`` (followed by ``.`` or white
+    space) in any source of the port or in chip_smoke.py; ``tpubwa_torch``
+    itself does not match."""
+    pat = re.compile(r"^\s*(?:from|import)\s+tpubwa(?:\.|\s|$)", re.M)
+    assert pat.search("import tpubwa\n")
+    assert pat.search("from tpubwa.x import y")
+    assert not pat.search("from tpubwa_torch.ops import fm")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "tpubwa_torch")):
+        files += [os.path.join(base, n) for n in names
+                  if n.endswith((".py", ".cu", ".cpp", ".h"))]
+    assert len(files) > 30
+    bad = []
+    for path in files:
+        with open(path) as f:
+            if pat.search(f.read()):
+                bad.append(os.path.relpath(path, ROOT))
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("argv,err", [

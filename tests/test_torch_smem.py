@@ -142,3 +142,69 @@ def test_seed_rows_matches_jax(setup):
                                       np.asarray(want.overflow))
         if rpr == 2:
             assert n == 2 * q.shape[0]        # the buffer is full
+
+
+def _round2_lanes(q, lens):
+    """Synthetic round-2 lanes over every read at spread middle positions
+    (a seventh at the read's last base) and thresholds 1..4, a fifth of
+    them inactive."""
+    rng = np.random.default_rng(11)
+    G = 4 * B
+    rd = rng.integers(0, B, G).astype(np.int32)
+    mid = rng.integers(0, L, G).astype(np.int32)
+    mid[::7] = np.maximum(lens[rd[::7]] - 1, 0)
+    thr = rng.integers(1, 5, G).astype(np.int32)
+    act = rng.random(G) > 0.2
+    return rd, mid, thr, act
+
+
+@pytest.mark.parametrize("cap", [32, 1], ids=["cap32", "cap1-overflows"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("rnd", ["round2", "round3"])
+def test_chain_rounds_match_jax(rnd, wide, cap):
+    """The plain round-2 and round-3 chains (the references the CUDA
+    kernel is held against) equal the JAX loops on whole buffers, on the
+    narrow and the forced wide layout, also where ``cap`` overflows."""
+    import jax
+
+    from tpubwa.ops import smem_chain as jsc
+    from tpubwa.ops.fm import DeviceIndex as JaxDI
+    from tpubwa_torch.ops import smem_chain as tsc
+    from tpubwa_torch.ops.fm import DeviceIndex
+
+    _, _, q, lens = _setup("repeat")
+    rng = np.random.default_rng(7)
+    idx = FMIndex.build([Contig("c1", 48_000, 0)], _repeat_genome(rng, 48_000))
+    tdi = DeviceIndex.from_host(idx, "cpu", wide=wide)
+    idt = np.int64 if wide else np.int32
+    rd, mid, thr, act = _round2_lanes(q, lens)
+    tq, tl = torch.as_tensor(q), torch.as_tensor(lens)
+    jax.config.update("jax_enable_x64", wide)
+    try:
+        jdi = JaxDI.from_host(idx, wide=wide)
+        if rnd == "round2":
+            want = jsc.smem_through_chain(
+                jdi, jnp.asarray(q), jnp.asarray(lens), jnp.asarray(rd),
+                jnp.asarray(mid), jnp.asarray(thr.astype(idt)),
+                jnp.asarray(act), min_seed_len=OPT.min_seed_len, cap=cap)
+        else:
+            want = jsc.smem_round3_chain(
+                jdi, jnp.asarray(q), jnp.asarray(lens),
+                min_seed_len=OPT.min_seed_len,
+                max_mem_intv=OPT.max_mem_intv, cap=cap)
+        want = [np.asarray(f) for f in want]
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    if rnd == "round2":
+        got = tsc.smem_through_chain(
+            tdi, tq, tl, torch.as_tensor(rd), torch.as_tensor(mid),
+            torch.as_tensor(thr.astype(idt)), torch.as_tensor(act),
+            min_seed_len=OPT.min_seed_len, cap=cap)
+    else:
+        got = tsc.smem_round3_chain(tdi, tq, tl, min_seed_len=OPT.min_seed_len,
+                                    max_mem_intv=OPT.max_mem_intv, cap=cap)
+    assert got.k.dtype == (torch.int64 if wide else torch.int32)
+    for name, g, w in zip(got._fields, got, want):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    assert int(got.n.sum()) > 20
+    assert bool(got.overflow.any()) == (cap == 1)

@@ -1,20 +1,24 @@
 """tpubwa_torch — the PyTorch/CUDA port of the tpubwa short-read aligner.
 
 A second package beside ``tpubwa`` (the JAX reference).  It imports
-``torch`` and never ``jax``; framework-free host code (FASTA/FASTQ/SAM I/O,
-the FM-index builder, ``MemOptions``, the native ``libtpubwa.so`` and
-chaining) is imported from ``tpubwa``, and everything that ran on the TPU
-runs here on an explicit torch ``device``.
+``torch`` and never ``jax`` nor anything of ``tpubwa``: it keeps its own
+copies of the host code (FASTA/FASTQ/SAM I/O, the FM-index builder with the
+same on-disk format, ``MemOptions``, the native C++ host library), and
+everything that ran on the TPU runs here on an explicit torch ``device``.
 
 Layout mirrors ``tpubwa``:
   tpubwa_torch.ops    — device compute: FM search, SMEM chains, seed rows,
-                        extension DP (hand-written CUDA kernel), global DP
-  tpubwa_torch.align  — flat extension driver, flat SAM, the Aligner
+                        extension DP, global DP, mate rescue, sampled SA;
+                        each loop of dependent steps is a hand-written
+                        CUDA kernel with its plain version beside it
+  tpubwa_torch.align  — flat extension driver, flat SAM, pairing, the Aligner
   tpubwa_torch.csrc   — CUDA C++ kernel sources, built by nvcc at first use
+  tpubwa_torch.native — C++ host library sources, built by g++ at first use
+  tpubwa_torch.index / io / utils / config — host code
   tpubwa_torch.cli    — ``tpu-bwa-torch index|mem``
 
-Ported so far: the single-end main path on an index under 2^31
-characters, on one device.
+Ported so far: single-end and paired-end alignment and the serving modes
+(wide index, sampled SA, ``--chunks``, ``--hosts``, ``-t N``) on one device.
 """
 
 __version__ = "0.1.0"

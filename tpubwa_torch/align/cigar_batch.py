@@ -2,7 +2,8 @@
 
 Executes the global-alignment jobs yielded by the finalize generators
 (finalize.gen_cigar_g) as one device batch per (Q, T) size bucket per
-round, with the traceback on the device as well.
+round, with the traceback on the device as well (one kernel launch per
+bucket on a CUDA device).
 """
 from __future__ import annotations
 
@@ -10,10 +11,9 @@ import dataclasses
 
 import numpy as np
 
-from tpubwa.config import MemOptions
-from tpubwa_torch.ops.global_align import (global_align,
-                                           global_align_cigar_batch,
-                                           steps_to_cigar)
+from tpubwa_torch.config import MemOptions
+from tpubwa_torch.ops.global_align import global_align, steps_to_cigar
+from tpubwa_torch.ops.global_align_cuda import global_align_cigar_core
 
 
 @dataclasses.dataclass
@@ -72,7 +72,7 @@ class GABatchExecutor:
                 tlen[r] = tl
                 w[r] = job.w
             put = self._put
-            res = global_align_cigar_batch(
+            res = global_align_cigar_core(
                 put(q), put(qlen), put(t), put(tlen), self._mat_dev, put(w),
                 o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
                 e_ins=opt.e_ins)

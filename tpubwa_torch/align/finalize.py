@@ -13,10 +13,10 @@ import math
 import numpy as np
 
 from tpubwa_torch.align.cigar_batch import GAJob
-from tpubwa.align.region import AlnReg
-from tpubwa.config import MemOptions
-from tpubwa.index.fmindex import FMIndex
-from tpubwa.io import sam as samio
+from tpubwa_torch.align.region import AlnReg
+from tpubwa_torch.config import MemOptions
+from tpubwa_torch.index.fmindex import FMIndex
+from tpubwa_torch.io import sam as samio
 from tpubwa_torch.ops.global_align import cigar_nm_md
 
 PATCH_MAX_R_BW = 0.05
@@ -108,7 +108,7 @@ def gen_cigar_g(opt: MemOptions, idx: FMIndex, query_seg: np.ndarray,
 def _drive_one(gen, opt: MemOptions):
     """Run a single finalize generator to completion with the scalar DP."""
     from tpubwa_torch.align.cigar_batch import GAScalarExecutor
-    from tpubwa.utils.rounds import drive_rounds
+    from tpubwa_torch.utils.rounds import drive_rounds
 
     return drive_rounds([gen], GAScalarExecutor(opt))[0]
 

@@ -1,7 +1,5 @@
 """Flat extension driver: chain + extend a whole read batch with native
-calls and a few device waves (port of the device half of
-``tpubwa.align.flatext``; ``prepare_jobs`` and ``finalize_fields`` are
-host code and are imported from there).
+calls and a few device waves (port of ``tpubwa.align.flatext``).
 
   seed rows (host)
     -> native ext_prepare   : chain/filter every read + one job descriptor
@@ -16,7 +14,9 @@ import ctypes
 
 import numpy as np
 
-from tpubwa.native import load_native
+from tpubwa_torch.align.region import AlnReg
+from tpubwa_torch.config import MemOptions
+from tpubwa_torch.native import load_native
 from tpubwa_torch.ops.extend_flat import (Q_PAD, T_PAD, extend_jobs,
                                           extend_jobs_left,
                                           extend_jobs_right)
@@ -28,14 +28,62 @@ MIN_WAVE = 256
 MAX_WAVE = 8192
 
 
-def native_lib():
-    """libtpubwa.so, or an error: the port has no path without it."""
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_F64P = ctypes.POINTER(ctypes.c_double)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+
+
+def _i32(a):
+    return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def prepare_jobs(opt: MemOptions, l_pac: int, contig_offsets: np.ndarray,
+                 seed_rows: np.ndarray, bounds: np.ndarray,
+                 skip: np.ndarray, lens: np.ndarray, l_rep: np.ndarray):
+    """native ext_prepare.  Returns (handle, jobs-dict, n_jobs)."""
     lib = load_native()
-    if lib is None:
-        raise RuntimeError(
-            "libtpubwa.so (tpubwa/native) failed to build or load; the "
-            "port's main path needs it (g++ must be available)")
-    return lib
+    seed_rows = np.ascontiguousarray(seed_rows, dtype=np.int64)
+    bounds = np.ascontiguousarray(bounds, dtype=np.int64)
+    skip = np.ascontiguousarray(skip, dtype=np.uint8)
+    offs = np.ascontiguousarray(contig_offsets, dtype=np.int64)
+    lens = _i32(lens)
+    l_rep = _i32(l_rep)
+    n_seeds = len(seed_rows)
+    n_reads = len(bounds) - 1
+    cap = max(n_seeds, 1)
+    jobs = {
+        "read": np.empty(cap, np.int32),
+        "qbeg": np.empty(cap, np.int32),
+        "slen": np.empty(cap, np.int32),
+        "rbeg": np.empty(cap, np.int64),
+        "rmax0": np.empty(cap, np.int64),
+        "rmax1": np.empty(cap, np.int64),
+        "h0": np.empty(cap, np.int32),
+    }
+    counts = np.zeros(1, np.int64)
+    handle = lib.ext_prepare(
+        seed_rows.ctypes.data_as(_I64P), n_seeds,
+        bounds.ctypes.data_as(_I64P), n_reads,
+        skip.ctypes.data_as(_U8P),
+        offs.ctypes.data_as(_I64P), len(offs), l_pac,
+        lens.ctypes.data_as(_I32P), l_rep.ctypes.data_as(_I32P),
+        opt.w, opt.max_chain_gap, opt.min_chain_weight,
+        opt.max_chain_extend, opt.mask_level, opt.drop_ratio,
+        opt.min_seed_len,
+        opt.a, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+        opt.pen_clip5, opt.pen_clip3,
+        jobs["read"].ctypes.data_as(_I32P),
+        jobs["qbeg"].ctypes.data_as(_I32P),
+        jobs["slen"].ctypes.data_as(_I32P),
+        jobs["rbeg"].ctypes.data_as(_I64P),
+        jobs["rmax0"].ctypes.data_as(_I64P),
+        jobs["rmax1"].ctypes.data_as(_I64P),
+        jobs["h0"].ctypes.data_as(_I32P),
+        cap, counts.ctypes.data_as(_I64P))
+    if not handle:
+        raise RuntimeError("ext_prepare capacity exceeded")
+    return handle, jobs, int(counts[0])
 
 
 def _ext_kw(aligner) -> dict:
@@ -129,6 +177,62 @@ def _call_extend(aligner, codes_dev, lens_dev, rd, qbeg, slen, rbeg, rmax0,
         **_ext_kw(aligner))
 
 
+def finalize_fields(handle, results: np.ndarray, n_reads: int,
+                    n_jobs: int) -> tuple[dict, np.ndarray]:
+    """native ext_finalize: containment replay -> flat per-region arrays
+    (fields dict + bounds[n_reads+1]) — the flat SAM path consumes these
+    directly (align/flatsam.py); finalize_regs wraps them into AlnReg
+    lists for the generator path."""
+    lib = load_native()
+    results = np.ascontiguousarray(results, dtype=np.int32)
+    cap = max(n_jobs, 1)
+    fields: dict = {"rb": np.empty(cap, np.int64),
+                    "re": np.empty(cap, np.int64)}
+    for k in ("qb", "qe", "score", "truesc", "w", "seedcov", "rid",
+              "seedlen0"):
+        fields[k] = np.empty(cap, np.int32)
+    fields["frac_rep"] = np.empty(cap, np.float64)
+    bounds = np.empty(n_reads + 1, np.int64)
+    counts = np.zeros(1, np.int64)
+    rc = lib.ext_finalize(
+        handle, results.ctypes.data_as(_I32P),
+        fields["rb"].ctypes.data_as(_I64P),
+        fields["re"].ctypes.data_as(_I64P),
+        fields["qb"].ctypes.data_as(_I32P),
+        fields["qe"].ctypes.data_as(_I32P),
+        fields["score"].ctypes.data_as(_I32P),
+        fields["truesc"].ctypes.data_as(_I32P),
+        fields["w"].ctypes.data_as(_I32P),
+        fields["seedcov"].ctypes.data_as(_I32P),
+        fields["rid"].ctypes.data_as(_I32P),
+        fields["seedlen0"].ctypes.data_as(_I32P),
+        fields["frac_rep"].ctypes.data_as(_F64P),
+        bounds.ctypes.data_as(_I64P), cap, counts.ctypes.data_as(_I64P))
+    if rc != 0:
+        raise RuntimeError("ext_finalize capacity exceeded")
+    return fields, bounds
+
+
+def finalize_regs(handle, results: np.ndarray, n_reads: int,
+                  n_jobs: int) -> list[list[AlnReg]]:
+    """native ext_finalize: containment replay -> list[list[AlnReg]]."""
+    fields, bounds = finalize_fields(handle, results, n_reads, n_jobs)
+    out: list[list[AlnReg]] = []
+    for r in range(n_reads):
+        regs = []
+        for i in range(int(bounds[r]), int(bounds[r + 1])):
+            regs.append(AlnReg(
+                rb=int(fields["rb"][i]), re=int(fields["re"][i]),
+                qb=int(fields["qb"][i]), qe=int(fields["qe"][i]),
+                rid=int(fields["rid"][i]), score=int(fields["score"][i]),
+                truesc=int(fields["truesc"][i]), w=int(fields["w"][i]),
+                seedcov=int(fields["seedcov"][i]),
+                seedlen0=int(fields["seedlen0"][i]),
+                frac_rep=float(fields["frac_rep"][i])))
+        out.append(regs)
+    return out
+
+
 def run_phased(aligner, codes_dev, lens_dev, handle, jobs: dict,
                n_jobs: int, lens_host: np.ndarray) -> np.ndarray:
     """Phased extension rounds — bwa's sequential seed-skip recovered for
@@ -139,15 +243,12 @@ def run_phased(aligner, codes_dev, lens_dev, handle, jobs: dict,
     with the results so far and returns exactly the jobs a further round
     must run; ext_finalize's sequential replay never reads a slot that was
     not run.  Output is identical to running every job."""
-    lib = native_lib()
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib = load_native()
 
     results = np.zeros((max(n_jobs, 1), 14), np.int32)
     have = np.zeros(max(n_jobs, 1), np.uint8)
     ids = np.empty(max(n_jobs, 1), np.int64)
-    n1 = lib.ext_phase1(handle, ids.ctypes.data_as(i64p))
+    n1 = lib.ext_phase1(handle, ids.ctypes.data_as(_I64P))
     run = ids[:n1].copy()
     while run.size:
         sub = {k: np.ascontiguousarray(v[:n_jobs][run])
@@ -156,8 +257,8 @@ def run_phased(aligner, codes_dev, lens_dev, handle, jobs: dict,
                                  lens_host=lens_host)
         have[run] = 1
         n_miss = lib.ext_missing(
-            handle, results.ctypes.data_as(i32p), have.ctypes.data_as(u8p),
-            ids.ctypes.data_as(i64p), len(ids))
+            handle, results.ctypes.data_as(_I32P), have.ctypes.data_as(_U8P),
+            ids.ctypes.data_as(_I64P), len(ids))
         if n_miss < 0:
             raise RuntimeError("ext_missing capacity exceeded")
         run = ids[:n_miss].copy()

@@ -17,9 +17,10 @@ Everything else (patch-triggering region geometry, multiple primaries /
 supplementary alignments, cigar-pack overflow) goes to the per-read
 generator tier, whose output is identical by construction.
 
-The device halves (`_flat_windows`, `_ga_rows`, `_gather_rows`) are torch
-ops; the host functions are carried over from the JAX package (its
-module imports jax), changed only where they called into jax.
+The device halves (`_flat_windows`, `_gather_rows`) are torch ops and
+`_ga_rows` is one kernel launch on a CUDA device; the host functions are
+carried over from the JAX package (its module imports jax), changed only
+where they called into jax.
 """
 from __future__ import annotations
 
@@ -28,14 +29,15 @@ import math
 import numpy as np
 import torch
 
-from tpubwa.align.region import AlnReg
-from tpubwa.config import MemOptions
-from tpubwa.native import load_native
-from tpubwa.utils.rounds import drive_rounds
 from tpubwa_torch.align import finalize
+from tpubwa_torch.align.region import AlnReg
+from tpubwa_torch.config import MemOptions
+from tpubwa_torch.native import load_native
+from tpubwa_torch.ops import global_align_cuda
 from tpubwa_torch.ops.fm import DeviceIndex, ref_window_right
 from tpubwa_torch.ops.global_align import (cigar_nm_md,
                                            global_align_cigar_batch)
+from tpubwa_torch.utils.rounds import drive_rounds
 
 QPAD = 192     # query window pad (== GA bucket Q)
 TWIN = 256     # reference window pad (== GA bucket T)
@@ -127,12 +129,25 @@ GA_K = 24   # per-lane cigar-segment pack capacity
 
 def _ga_rows(qD, tD, rows, qlen, tlen, w, mat, *, o_del: int, e_del: int,
              o_ins: int, e_ins: int, ga_k: int = GA_K):
-    """Global alignment over device-resident window buffers: gather the
-    requested lanes, run the batched DP + traceback, and run-length-encode
-    the traceback on the device into a compact int16 [M, 2+ga_k] pack
-    (col0 score, col1 nseg, then (len<<2 | op) per cigar segment in CIGAR
-    order).  Lanes with nseg > ga_k are re-rendered by the caller via the
-    generator path."""
+    """Global alignment over device-resident window buffers for the
+    requested lanes: DP fill, traceback and run-length encoding into a
+    compact int16 [M, 2+ga_k] pack (col0 score, col1 nseg, then
+    (len<<2 | op) per cigar segment in CIGAR order; all segments zero
+    when nseg > ga_k).  Lanes with nseg > ga_k are re-rendered by the
+    caller via the generator path.  One launch of the CUDA kernel
+    (``csrc/global_align.cu``) for CUDA tensors, ``_ga_rows_plain`` for CPU
+    tensors."""
+    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins, ga_k=ga_k)
+    if qD.device.type == "cpu":
+        return _ga_rows_plain(qD, tD, rows, qlen, tlen, w, mat, **kw)
+    return global_align_cuda.ga_pack(qD, tD, rows, qlen, tlen, w, mat, **kw)
+
+
+def _ga_rows_plain(qD, tD, rows, qlen, tlen, w, mat, *, o_del: int,
+                   e_del: int, o_ins: int, e_ins: int, ga_k: int = GA_K):
+    """The plain version of ``_ga_rows``: gather the lanes, run the
+    batched DP + traceback as torch ops, and run-length-encode the step
+    rows on the device."""
     I32 = torch.int32
     I16 = torch.int16
     dev = qD.device
@@ -455,9 +470,6 @@ def _emit_native(aligner, names, seqs, quals, other, core, rec
     import ctypes
 
     lib = load_native()
-    if lib is None:
-        raise RuntimeError("libtpubwa.so (tpubwa/native) failed to build "
-                           "or load; the SAM emitter needs it")
     B = len(other)
     NL = core["rid"].size
     NR = rec["b"].size

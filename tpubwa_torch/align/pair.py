@@ -21,13 +21,13 @@ import sys
 import numpy as np
 import torch
 
-from tpubwa.align.region import AlnReg
-from tpubwa.config import MemOptions
-from tpubwa.index.fmindex import FMIndex
-from tpubwa.io import sam as samio
-from tpubwa.utils.rounds import drive_rounds
 from tpubwa_torch.align import finalize, flatsam
+from tpubwa_torch.align.region import AlnReg
+from tpubwa_torch.config import MemOptions
+from tpubwa_torch.index.fmindex import FMIndex
+from tpubwa_torch.io import sam as samio
 from tpubwa_torch.ops.localsw_cuda import localsw_core
+from tpubwa_torch.utils.rounds import drive_rounds
 
 MIN_RATIO = 0.8
 MIN_DIR_CNT = 10
@@ -809,7 +809,7 @@ def align_pe_fastq(aligner, fq1: str, fq2: str, out, workers: int = 1,
     host pairing, rescue and SAM run; ``pipeline.run_ordered_pool``
     otherwise), with their ``chunk_dir`` resume and ``shard`` filter.
     FASTQs of unequal length write every complete batch, then return 1."""
-    from tpubwa.io.fastq import stream_batches
+    from tpubwa_torch.io.fastq import stream_batches
     from tpubwa_torch.align.pipeline import (run_dispatch_ahead,
                                              run_ordered_pool)
 

@@ -5,7 +5,7 @@ pairing and mate rescue (``align/pair.py``).
 
 Phase timers keep the reference's names (SMEM / SAL / CHAIN / BSW / SAM).
 Everything on the device runs on the Aligner's explicit ``device``; the
-native host library ``libtpubwa.so`` is required.
+native host library (``tpubwa_torch/native``) is required.
 
 Serving modes: a wide (>= 2^31) index, the sampled suffix array
 (``opt.sa_sample_shift``), ``--chunks`` resume, ``--hosts`` sharding and
@@ -20,18 +20,20 @@ import numpy as np
 import torch
 
 import tpubwa_torch
-from tpubwa.config import MemOptions
-from tpubwa.index.fmindex import FMIndex
-from tpubwa.io.fastq import stream_batches
-from tpubwa.io.sam import sam_header
-from tpubwa.utils.timers import PhaseTimers
 from tpubwa_torch.align import flatext, flatsam
 from tpubwa_torch.align.cigar_batch import GABatchExecutor
-from tpubwa_torch.ops import extend_cuda, localsw_cuda, sa_sampled_cuda
+from tpubwa_torch.config import MemOptions
+from tpubwa_torch.index.fmindex import FMIndex
+from tpubwa_torch.io.fastq import stream_batches
+from tpubwa_torch.io.sam import sam_header
+from tpubwa_torch.native import load_native
+from tpubwa_torch.ops import (extend_cuda, global_align_cuda, localsw_cuda,
+                              sa_sampled_cuda, smem_chain_cuda)
 from tpubwa_torch.ops.extend_cuda import extend_core, extend_core_b
 from tpubwa_torch.ops.fm import DeviceIndex, build_sampled_sa
 from tpubwa_torch.ops.seeds import seed_rows
 from tpubwa_torch.ops.smem_chain import collect_smems_chain
+from tpubwa_torch.utils.timers import PhaseTimers
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -82,7 +84,7 @@ class Aligner:
         if self.opt.shard_sa:
             raise _not_ported("the sharded suffix array (shard_sa)", "P9")
         self.device = resolve_device(device)
-        flatext.native_lib()          # fail now, not mid-batch
+        load_native()                 # fail now, not mid-batch
         self.mat = self.opt.score_matrix()
         self.contig_offsets = np.array([c.offset for c in idx.contigs],
                                        dtype=np.int64)
@@ -100,6 +102,8 @@ class Aligner:
         if self.device.type == "cuda":
             extend_cuda.build(_EXT_SOURCES[ext_layout])
             localsw_cuda.build()
+            smem_chain_cuda.build()
+            global_align_cuda.build()
             if self.opt.sa_sample_shift:
                 sa_sampled_cuda.build()
         self.mat_dev = self._put(self.mat)
@@ -150,10 +154,8 @@ class Aligner:
 
     def _regions_flat(self, batch, seed_handle=None):
         """Seed + chain + extend a ReadBatch via the flat native engine;
-        returns (fields, bounds) as ``tpubwa.align.flatext.finalize_fields``
-        gives them."""
-        from tpubwa.align.flatext import finalize_fields, prepare_jobs
-
+        returns (fields, bounds) as ``flatext.finalize_fields`` gives
+        them."""
         if seed_handle is None:
             seed_handle = self.seed_batch_dispatch(batch.codes, batch.lens)
         seed_rows_h, l_rep = self.seed_batch_finish(seed_handle)
@@ -164,17 +166,13 @@ class Aligner:
             bounds = np.searchsorted(seed_rows_h[:, 0], np.arange(B + 1))
             skip = (np.asarray(batch.lens) < self.opt.min_seed_len
                     ).astype(np.uint8)
-            prep = prepare_jobs(
+            handle, jobs, n_jobs = flatext.prepare_jobs(
                 self.opt, self.idx.l_pac, self.contig_offsets, seed_rows_h,
                 bounds, skip, batch.lens, l_rep[:B])
-        if prep is None:
-            raise RuntimeError("libtpubwa.so (tpubwa/native) failed to "
-                               "build or load")
-        handle, jobs, n_jobs = prep
         with self.timers.phase("BSW"):
             results = flatext.run_phased(self, codes_dev, lens_dev, handle,
                                          jobs, n_jobs, lens_host=batch.lens)
-            return finalize_fields(handle, results, B, n_jobs)
+            return flatext.finalize_fields(handle, results, B, n_jobs)
 
     def regions_batch(self, batch, seed_handle=None):
         """Seed + chain + extend a ReadBatch; returns list[list[AlnReg]]."""
@@ -508,11 +506,11 @@ def run_se_pipeline(aligner: Aligner, fq1: str, out, workers: int = 1,
                     manifest: dict | None = None,
                     shard: tuple[int, int] | None = None) -> int:
     """SE driver.  ``workers == 1`` runs ``run_dispatch_ahead``: batch
-    N+1's seeding is issued before batch N is finished (the chain loops
-    check for DONE lanes on the host, so seeding completes before it
-    returns and the two do not overlap yet).  ``workers > 1`` runs the
-    ordered thread pool, each worker aligning whole batches.  Returns the
-    reads done."""
+    N+1's seeding is issued before batch N is finished (seeding reads its
+    round-2 candidate count on the host, so rounds 1 and 2 complete
+    before it returns; only round 3 and the seed rows overlap batch N).
+    ``workers > 1`` runs the ordered thread pool, each worker aligning
+    whole batches.  Returns the reads done."""
     opt = aligner.opt
 
     def items():

@@ -10,9 +10,10 @@
 visible — pass ``--device cpu`` to run on the CPU).  A second reads file
 aligns paired ends.  ``--ext-layout`` picks the extension kernel: ``t``
 (one thread per job, the default) or ``b`` (one warp per job); the
-output is the same.  The index format is the JAX package's
-(``tpubwa.index.fmindex``); an index of 2^31 characters or more loads in
-the wide (int64) layout.  None of the serving options changes the SAM.
+output is the same.  The index format on disk is the JAX package's
+(an index written by either package loads in the other); an index of
+2^31 characters or more loads in the wide (int64) layout.  None of the
+serving options changes the SAM.
 Not ported: device meshes (the v5e-4/v5e-16 presets) and the JAX CLI's
 ``--coordinator`` (multi-process meshes).
 """
@@ -27,7 +28,7 @@ import tpubwa_torch
 
 
 def cmd_index(args) -> int:
-    from tpubwa.index.fmindex import FMIndex
+    from tpubwa_torch.index.fmindex import FMIndex
 
     if not os.path.exists(args.ref):
         print(f"tpu-bwa-torch index: no such file: {args.ref}",

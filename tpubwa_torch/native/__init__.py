@@ -1,0 +1,1 @@
+from tpubwa_torch.native.build import load_native  # noqa: F401

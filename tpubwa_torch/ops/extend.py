@@ -49,7 +49,8 @@ def _extend_core(query: torch.Tensor, qlen: torch.Tensor,
                  target: torch.Tensor, tlen: torch.Tensor, mat,
                  w: torch.Tensor, h0: torch.Tensor, end_bonus: torch.Tensor,
                  *, o_del: int, e_del: int, o_ins: int, e_ins: int,
-                 zdrop: int, mat_max: int) -> ExtendBatchResult:
+                 zdrop: int, mat_max: int,
+                 stats: dict | None = None) -> ExtendBatchResult:
     """Batched ksw_extend2.
 
     query:  [B, Q] codes 0..4 (padded arbitrarily past qlen)
@@ -58,7 +59,9 @@ def _extend_core(query: torch.Tensor, qlen: torch.Tensor,
     w / h0 / end_bonus / qlen / tlen: [B] per-lane parameters
 
     Rows stop once no lane is alive: dead lanes are no-ops, so this
-    changes nothing in the result."""
+    changes nothing in the result.  ``stats`` (a dict, for measurement)
+    receives ``cells``: the band cells of the rows each job really visits
+    before its own exit, the work a per-job kernel has to do."""
     B, Q = query.shape
     T = target.shape[1]
     dev = query.device
@@ -90,6 +93,7 @@ def _extend_core(query: torch.Tensor, qlen: torch.Tensor,
     max_off = torch.zeros(B, dtype=I32, device=dev)
     alive = (qlen > 0) & (tlen > 0)
     neg_col = torch.full((B, 1), NEG, dtype=I32, device=dev)
+    cells = torch.zeros((), dtype=torch.int64, device=dev)
 
     for i in range(T):
         if i % ALIVE_CHECK == 0 and not bool(alive.any()):
@@ -99,6 +103,8 @@ def _extend_core(query: torch.Tensor, qlen: torch.Tensor,
 
         in_band = (jb >= i - w[:, None]) & (jb < i + w[:, None] + 1) \
             & (jb < qlen[:, None])
+        if stats is not None:
+            cells += (in_band & act[:, None]).sum()
         is_n = q_is_n | (t_i >= 4)[:, None]
         s_row = torch.where(is_n, s_n, torch.where(
             t_i[:, None] == query, s_match, s_mis))
@@ -163,5 +169,7 @@ def _extend_core(query: torch.Tensor, qlen: torch.Tensor,
         E = torch.where(keep, E_new, E)
         M_prev = torch.where(keep, M, M_prev)
 
+    if stats is not None:
+        stats["cells"] = int(cells)
     return ExtendBatchResult(score=best, qle=best_j + 1, tle=best_i + 1,
                              gtle=max_ie + 1, gscore=gscore, max_off=max_off)

@@ -140,13 +140,17 @@ def extend_b_variant(variant: str, query, qlen, target, tlen, mat, w, h0,
                      end_bonus, **kw) -> ExtendBatchResult:
     """K1b with blocks cut out (``VARIANTS``; CUDA tensors, Q = 192):
     timing only — every variant but "full" gives wrong results by
-    design.  Not counted in ``extend_core_b.launches``."""
+    design.  Counted in its own ``launches``, not in
+    ``extend_core_b.launches``."""
     if query.device.type != "cuda":
         raise ValueError("extend_b_variant runs on CUDA tensors only")
     _check_b(query)
-    return _launch("extend_b", query, qlen, target, tlen, mat, w, h0,
-                   end_bonus, variant=VARIANTS[variant], **kw)
+    res = _launch("extend_b", query, qlen, target, tlen, mat, w, h0,
+                  end_bonus, variant=VARIANTS[variant], **kw)
+    cuda_build.count_launch(extend_b_variant)
+    return res
 
 
 extend_core.launches = 0
 extend_core_b.launches = 0
+extend_b_variant.launches = 0

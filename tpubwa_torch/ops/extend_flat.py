@@ -2,7 +2,7 @@
 query/target windows gathered on the device (port of
 ``tpubwa.ops.extend_flat``).
 
-The native host engine (``libtpubwa.so`` ext_prepare) emits one
+The native host engine (``native/extension.cpp`` ext_prepare) emits one
 descriptor per chain seed — (read_id, qbeg, slen, rbeg, rmax0, rmax1,
 h0) — and these functions build the (query, target) buffers with gathers
 from the device-resident read batch and 2-bit packed reference, then run

@@ -30,7 +30,7 @@ from typing import Mapping, NamedTuple
 import numpy as np
 import torch
 
-from tpubwa.index.fmindex import FMIndex
+from tpubwa_torch.index.fmindex import FMIndex
 
 _M32 = 0xFFFFFFFF
 

@@ -9,7 +9,9 @@ machine reads 2 bits per state from the direction byte.
 
 The numpy functions (``global_align``, ``traceback_cigar``,
 ``steps_to_cigar``, ``cigar_nm_md``) are carried over unchanged; the
-batched DP fill and traceback are plain torch ops on the device.
+batched DP fill and traceback here are the plain version, torch ops row
+by row and step by step.  ``ops.global_align_cuda`` holds their CUDA
+kernel (``csrc/global_align.cu``) and runs these for CPU tensors only.
 
 CIGAR op codes: 0=M 1=I 2=D 3=S 4=H (tpubwa.io.sam.CIGAR_OPS).
 """

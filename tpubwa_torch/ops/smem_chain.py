@@ -12,11 +12,17 @@ Round 2 runs the same chain per (read, candidate) lane at occ threshold
 t through the candidate's middle; round 3 is a forward-only restart chain
 (LAST-like seeding).  Semantics are those of ``tpubwa.ops.fm_ref``.
 
-Each chain step is a handful of plain torch ops over all lanes.  The
-loops check "any lane not DONE" once per ``UNROLL`` steps (one host sync
-each): DONE lanes are no-ops, so the extra steps change nothing.  Writes
-that JAX expresses as dropping scatters (an index past the end means
-"drop") go to one extra dump column that is sliced off.
+The three chain functions here are the plain versions: each chain step
+is a handful of plain torch ops over all lanes.  The loops check "any
+lane not DONE" once per ``UNROLL`` steps (one host sync each): DONE lanes
+are no-ops, so the extra steps change nothing.  Writes that JAX expresses
+as dropping scatters (an index past the end means "drop") go to one extra
+dump column that is sliced off.
+
+``collect_smems_chain`` runs the chains through ``ops.smem_chain_cuda``:
+the CUDA kernel (``csrc/smem_chain.cu``) for CUDA tensors, these plain
+versions for CPU tensors.  The candidate compaction, the appends and the
+sort around them are torch ops on either device.
 """
 from __future__ import annotations
 
@@ -319,6 +325,14 @@ def smem_round3_chain(di: DeviceIndex, q: torch.Tensor, lens: torch.Tensor,
     return _result(_run_chain(step, st), cap)
 
 
+def _cores():
+    """The chain entry points (``ops.smem_chain_cuda`` imports this
+    module's plain versions, so it is imported at the call)."""
+    from tpubwa_torch.ops import smem_chain_cuda
+
+    return smem_chain_cuda
+
+
 def _bulk_append(mems: Smems, mask: torch.Tensor, src: Smems,
                  out_cap: int) -> Smems:
     """Append masked [B, X] lanes of src (ascending lane order) to the
@@ -353,8 +367,8 @@ def _smem_r1_prep(di: DeviceIndex, q: torch.Tensor, lens: torch.Tensor, *,
     mems = Smems(k=zero_out, l=zero_out, s=zero_out, start=zero_out,
                  end=zero_out, n=torch.zeros(B, dtype=I32, device=dev),
                  overflow=torch.zeros(B, dtype=torch.bool, device=dev))
-    r1 = smem_round1_chain(di, q, lens, min_seed_len=min_seed_len,
-                           cap=out_cap)
+    r1 = _cores().smem_round1_core(di, q, lens, min_seed_len=min_seed_len,
+                                   cap=out_cap)
     m1 = slot_ids < r1.n[:, None]
     mems = _bulk_append(mems, m1, r1, out_cap)
 
@@ -370,6 +384,21 @@ def _smem_r1_prep(di: DeviceIndex, q: torch.Tensor, lens: torch.Tensor, *,
             r1.s.reshape(NC), int(fc.sum()))
 
 
+def _r2_lanes(src_tab, r1_start, r1_end, r1_s, total: int, w: int, *,
+              out_cap: int, G: int):
+    """The G chain lanes of round-2 wave w: (rd, mid, thr, act) = read
+    row, middle position, occ threshold (the candidate's occurrences + 1)
+    and whether the lane holds a candidate."""
+    NC = src_tab.shape[0]
+    gidx = w * G + torch.arange(G, dtype=I32, device=src_tab.device)
+    act = gidx < total
+    sf = src_tab[gidx.clamp(max=NC - 1)]
+    rd = sf // out_cap
+    mid = torch.where(act, ((r1_start[sf] + r1_end[sf]) >> 1).to(I32), 0)
+    thr = torch.where(act, r1_s[sf] + 1, 1)
+    return rd, mid, thr, act
+
+
 def _smem_r2_wave(di: DeviceIndex, q: torch.Tensor, lens: torch.Tensor,
                   mems: Smems, src_tab, r1_start, r1_end, r1_s, total: int,
                   w: int, *, min_seed_len: int, r2_cap: int, out_cap: int,
@@ -378,16 +407,11 @@ def _smem_r2_wave(di: DeviceIndex, q: torch.Tensor, lens: torch.Tensor,
     [w*G, (w+1)*G) with segmented append into the output buffers."""
     B = q.shape[0]
     dev = q.device
-    NC = src_tab.shape[0]
     e_ids = torch.arange(r2_cap, dtype=I32, device=dev)[None, :]
-    gidx = w * G + torch.arange(G, dtype=I32, device=dev)
-    act = gidx < total
-    sf = src_tab[gidx.clamp(max=NC - 1)]
-    rd = sf // out_cap
-    mid = torch.where(act, ((r1_start[sf] + r1_end[sf]) >> 1).to(I32), 0)
-    thr = torch.where(act, r1_s[sf] + 1, 1)
-    sub = smem_through_chain(di, q, lens, rd, mid, thr, act,
-                             min_seed_len=min_seed_len, cap=r2_cap)
+    rd, mid, thr, act = _r2_lanes(src_tab, r1_start, r1_end, r1_s, total, w,
+                                  out_cap=out_cap, G=G)
+    sub = _cores().smem_through_core(di, q, lens, rd, mid, thr, act,
+                                     min_seed_len=min_seed_len, cap=r2_cap)
     # segmented append: lanes of one read are consecutive, so each
     # lane's write base is (emissions of earlier same-read lanes)
     en = torch.where(act, sub.n, 0)
@@ -472,7 +496,8 @@ def collect_smems_chain(di: DeviceIndex, q: torch.Tensor, lens: torch.Tensor,
         di, q, lens, mems, src_tab, r1_start, r1_end, r1_s, total,
         min_seed_len=min_seed_len, r2_cap=r2_cap, out_cap=out_cap, G=G)
     if max_mem_intv > 0:
-        r3 = smem_round3_chain(di, q, lens, min_seed_len=min_seed_len,
-                               max_mem_intv=max_mem_intv, cap=out_cap)
+        r3 = _cores().smem_round3_core(
+            di, q, lens, min_seed_len=min_seed_len,
+            max_mem_intv=max_mem_intv, cap=out_cap)
         mems = _r3_append(mems, r3, out_cap)
     return _sort_by_start_end(mems, L, out_cap)

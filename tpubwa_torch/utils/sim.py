@@ -1,0 +1,207 @@
+"""wgsim-like read simulator (host) — test fixtures + benchmarks.
+
+The reference learned the hard way that only error-injected reads exercise
+the DP kernel (SURVEY.md §4.5 "test-data design pitfall"); this simulator
+injects substitutions and indels and encodes ground truth in read names:
+
+  sim_<serial>_<rid>_<pos0>_<strand>[_<mate>]   (pos0 = 0-based leftmost
+  forward coordinate of the originating fragment/segment)
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from tpubwa_torch.io.fasta import read_fasta
+from tpubwa_torch.utils.dna import decode, revcomp_codes
+
+
+def simulate_reads(codes: np.ndarray, contigs, n: int, length: int = 150,
+                   err: float = 0.01, indel: float = 0.0005,
+                   seed: int = 7) -> list[tuple[str, str, str]]:
+    """Single-end reads: returns [(name, seq, qual)]."""
+    rng = np.random.default_rng(seed)
+    out = []
+    l_tot = codes.size
+    offs = np.array([c.offset for c in contigs])
+    for i in range(n):
+        pos = int(rng.integers(0, l_tot - length))
+        frag = codes[pos : pos + length].copy()
+        strand = int(rng.integers(0, 2))
+        rid = int(np.searchsorted(offs, pos, side="right") - 1)
+        seq = _mutate(rng, frag, err, indel, length)
+        if strand:
+            seq = revcomp_codes(seq)
+        name = f"sim_{i}_{rid}_{pos}_{strand}"
+        out.append((name, decode(seq), "I" * len(seq)))
+    return out
+
+
+def simulate_pairs(codes: np.ndarray, contigs, n: int, length: int = 150,
+                   isize_mean: int = 400, isize_std: int = 50,
+                   err: float = 0.01, indel: float = 0.0005,
+                   seed: int = 7):
+    """Paired-end (FR orientation): returns ([(name,seq,qual)] r1, r2)."""
+    rng = np.random.default_rng(seed)
+    r1, r2 = [], []
+    l_tot = codes.size
+    offs = np.array([c.offset for c in contigs])
+    for i in range(n):
+        isize = max(int(rng.normal(isize_mean, isize_std)), length + 10)
+        pos = int(rng.integers(0, max(l_tot - isize, 1)))
+        rid = int(np.searchsorted(offs, pos, side="right") - 1)
+        left = codes[pos : pos + length].copy()
+        right = codes[pos + isize - length : pos + isize].copy()
+        s1 = _mutate(rng, left, err, indel, length)
+        s2 = revcomp_codes(_mutate(rng, right, err, indel, length))
+        name = f"sim_{i}_{rid}_{pos}_{pos + isize - length}"
+        r1.append((name, decode(s1), "I" * len(s1)))
+        r2.append((name, decode(s2), "I" * len(s2)))
+    return r1, r2
+
+
+def _mutate(rng, frag: np.ndarray, err: float, indel: float,
+            length: int) -> np.ndarray:
+    seq = list(frag)
+    # substitutions
+    for j in range(len(seq)):
+        if rng.random() < err:
+            seq[j] = (seq[j] + 1 + int(rng.integers(0, 3))) % 4
+    # indels
+    j = 0
+    while j < len(seq):
+        r = rng.random()
+        if r < indel / 2 and len(seq) > length // 2:
+            del seq[j]
+        elif r < indel:
+            seq.insert(j, int(rng.integers(0, 4)))
+            j += 2
+        else:
+            j += 1
+    return np.array(seq[:length], dtype=np.uint8)
+
+
+def write_fastq(path: str, reads) -> None:
+    with open(path, "w") as f:
+        for name, seq, qual in reads:
+            f.write(f"@{name}\n{seq}\n+\n{qual}\n")
+
+
+def golden_fixture(d: str) -> tuple[str, str, str, str]:
+    """The fixture tests/golden/*.sam were written from (the recipe of
+    tests/test_golden_sam.py::_build_fixture), made with the port's own
+    index builder and simulator: (ref, se.fq, r1.fq, r2.fq) in `d`."""
+    import os
+
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.io.fasta import Contig
+
+    codes = np.random.default_rng(42).integers(0, 4, 60000).astype(np.uint8)
+    contigs = [Contig("gA", 40000, 0), Contig("gB", 20000, 40000)]
+    ref = os.path.join(d, "golden_ref.fa")
+    with open(ref, "w") as f:
+        for c in contigs:
+            f.write(f">{c.name}\n")
+            seq = "".join("ACGT"[x] for x in
+                          codes[c.offset:c.offset + c.length])
+            for i in range(0, len(seq), 70):
+                f.write(seq[i:i + 70] + "\n")
+    FMIndex.build(contigs, codes).save(ref)
+    se = simulate_reads(codes, contigs, 300, length=150, err=0.015,
+                        indel=0.002, seed=7)
+    r1, r2 = simulate_pairs(codes, contigs, 100, length=125, isize_mean=320,
+                            isize_std=40, err=0.01, seed=13)
+    paths = [os.path.join(d, n) for n in ("se.fq", "r1.fq", "r2.fq")]
+    for path, reads in zip(paths, (se, r1, r2)):
+        write_fastq(path, reads)
+    return (ref, *paths)
+
+
+def ga_lanes(seed: int, n: int, Q: int = 192, T: int = 256, w0: int = 100):
+    """(qD int8 [n, Q], tD int8 [n, T], qlen, tlen, w): lane r is of kind
+    r % 8 = 0 mismatches only, 1/2/5 a few short indels, 3 one gap of
+    20..60 bases, 4 an indel every ~5 bases (nseg > 24), 6 (r % 16 == 6) a
+    one-base target, 7 (r % 16 == 7) a one-base query; kind 4's band is
+    the cap 4 * w0, kinds 5 and 6 run at the floor |qlen - tlen| (or 1).
+    Global-alignment lanes that hold the kernel (csrc/global_align.cu) and
+    its plain version to each other and to the JAX package."""
+    rng = np.random.default_rng(seed)
+    qD = np.full((n, Q), 4, np.int8)
+    tD = np.full((n, T), 4, np.int8)
+    qlen = np.zeros(n, np.int32)
+    tlen = np.zeros(n, np.int32)
+    w = np.zeros(n, np.int32)
+    for r in range(n):
+        kind = r % 8
+        ql = int(rng.integers(30, min(Q, 150) + 1))
+        q = rng.integers(0, 4, ql)
+        t = q.copy()
+        mut = rng.random(ql) < rng.choice([0.0, 0.02, 0.1])
+        t[mut] = rng.integers(0, 4, int(mut.sum()))
+        if kind in (1, 2, 5):
+            for _ in range(int(rng.integers(1, 4))):
+                p = int(rng.integers(1, len(t) - 1))
+                g = int(rng.integers(1, 6))
+                t = (np.concatenate([t[:p], rng.integers(0, 4, g), t[p:]])
+                     if rng.random() < 0.5
+                     else np.concatenate([t[:p], t[p + g:]]))
+        if kind == 3:
+            p = int(rng.integers(5, len(t) - 5))
+            g = int(rng.integers(20, 60))
+            t = (np.concatenate([t[:p], rng.integers(0, 4, g), t[p:]])
+                 if r % 16 == 3
+                 else np.concatenate([t[:p], t[p + min(g, len(t) - p - 2):]]))
+        if kind == 4:
+            parts, p = [], 0
+            while p < len(q):
+                parts.append(q[p:p + 5])
+                p += 5
+                if rng.random() < 0.5:
+                    parts.append(rng.integers(0, 4, 1))
+                else:
+                    p += 1
+            t = np.concatenate(parts)
+        if r % 16 == 6:
+            t = t[:1]
+        if r % 16 == 7:
+            q, ql = q[:1], 1
+        t = t[:T]
+        if rng.random() < 0.1:
+            q[rng.integers(0, ql)] = 4
+        qD[r, :ql] = q
+        tD[r, :len(t)] = t
+        qlen[r], tlen[r] = ql, len(t)
+        d = abs(ql - len(t))
+        w[r] = [d + 3, d + 3, max(d + 3, 11), max(d + 3, 35), 4 * w0, d,
+                max(d, 1), w0][kind]
+    return qD, tD, qlen, tlen, w
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description="simulate reads from a FASTA")
+    ap.add_argument("ref")
+    ap.add_argument("out_fq")
+    ap.add_argument("--out-fq2", default=None, help="write pairs")
+    ap.add_argument("--n", type=int, default=1000)
+    ap.add_argument("--len", type=int, default=150, dest="length")
+    ap.add_argument("--err", type=float, default=0.01)
+    ap.add_argument("--indel", type=float, default=0.0005)
+    ap.add_argument("--seed", type=int, default=7)
+    args = ap.parse_args()
+    contigs, codes, _ = read_fasta(args.ref)
+    if args.out_fq2:
+        r1, r2 = simulate_pairs(codes, contigs, args.n, args.length,
+                                err=args.err, indel=args.indel,
+                                seed=args.seed)
+        write_fastq(args.out_fq, r1)
+        write_fastq(args.out_fq2, r2)
+    else:
+        reads = simulate_reads(codes, contigs, args.n, args.length,
+                               err=args.err, indel=args.indel,
+                               seed=args.seed)
+        write_fastq(args.out_fq, reads)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,7 +14,12 @@ Phases (any failure exits non-zero):
 2. Hold each kernel against its plain PyTorch version on the card, exact
    on every field: K1 (extend.cu) and K1b (extend_b.cu) on random jobs at
    J=8192, Q=192, T=768; K4 (localsw.cu) on random rescue jobs at J=4096,
-   Q=192, T=1024 and T=256; K2 (smem_chain.cu) on the first 8192 reads of
+   Q=192, T=1024 and T=256; K1 and K4 also on the adversarial job sets
+   of tpubwa_torch.utils.sim (edge_sets below), and every comparison of
+   K1, K1b and K4 prints the cells a job visits (mean, p99, max) and the
+   hand kernel's own device time inside its wrapper (torch.profiler), and
+   K1's prep kernel (band clamp, sort keys) is held to its plain version
+   on every job set K1 sees; K2 (smem_chain.cu) on the first 8192 reads of
    phase 4's and of phase 5's fixture, narrow and forced wide: rounds 1
    and 3, round 2 on the candidates round 1 gives, and all three at caps
    small enough to overflow, whole buffers (k, l, s, start, end, n,
@@ -30,9 +35,10 @@ Phases (any failure exits non-zero):
 4. SE: a 4.6 Mb random genome (seed 42), 20,000 x 150 bp reads at 1%
    error (seed 7), batch 8192: one primary per read, >= 97% mapped,
    >= 92% within 50 bp of the simulated position.  The launch counts of
-   this run show the main path went through K2, K1 and K3; its first
-   left and right core inputs are captured and K1 and K1b are held to the
-   plain version on them, and K3 on the lanes of its first _ga_rows call
+   this run show the main path went through K2, K1 and K3; the core
+   inputs of its first left and right wave, each with its retry launch
+   (mostly dead lanes), are captured and K1 and K1b are held to the plain
+   version on them, and K3 on the lanes of its first _ga_rows call
    (the batch's non-exact lanes).  A warm pass gives reads/s and the
    phase table; a profiled pass (torch.profiler) the number of device
    kernels and the device-busy share.
@@ -43,7 +49,8 @@ Phases (any failure exits non-zero):
    (pinned below); its first mate-rescue round is captured and K4 is held
    to the plain version on it, and K3 on its first _ga_rows call.  Then
    a warm pass under each layout, the b pass counted again for K1b:
-   reads/s and the phase table.
+   reads/s and the phase table; then a profiled pass (layout t): device
+   time by kernel and the totals of the port's own kernels.
 6. K1b's ablation variants (scripts/ablate_kernel_r5.py, K1c) timed at
    that script's shapes; only the full variant is held to the plain
    version (the others are wrong by design).
@@ -112,6 +119,9 @@ KERNELS = {
     "sa_sampled": ("tpubwa_torch/csrc/sa_sampled.cu",
                    "tpubwa/ops/fm.py:323"),             # sa_lookup_sampled
 }
+# kernel -> what its __global__ function's name contains
+KERNEL_FUNCS = {"extend": "extend_kernel", "extend_b": "extend_b_kernel",
+                "localsw": "localsw_kernel"}
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s
 # of HBM; 67 TFLOP/s of float32 outside the tensor cores is 128 lanes per
 # SM at 2 FLOPs per fused multiply-add, and int32 has 64 lanes per SM at
@@ -338,6 +348,60 @@ def rescue_jobs(seed: int, J: int, Q: int, T: int) -> tuple:
             opt.score_matrix(), minsc, endsc), kw
 
 
+def edge_sets() -> list:
+    """(kernel, name, args, kw) of the adversarial job sets of utils.sim
+    for K1 and K4: qlen 0, 1, 31, 32, 33, Q; tlen 0, 1, T; w 0 and >= qlen;
+    a z-drop that fires; endsc reached on row 0 and never; all-N query and
+    target; ties for mj, te / qe and gscore; J = 1 and J a multiple of no
+    group or block size; mostly dead lanes; scores beyond 16 bits."""
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.utils.sim import extend_edge_jobs, localsw_edge_jobs
+
+    opt = MemOptions()
+    mat = opt.score_matrix()
+    gaps = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+                e_ins=opt.e_ins)
+    ekw = dict(gaps, zdrop=opt.zdrop, mat_max=opt.a)
+    sets = []
+
+    def ext(name, jobs, **over):
+        q, ql, t, tl, w, h0, bonus = jobs
+        sets.append(("extend", f"edge jobs, {name}",
+                     (q, ql, t, tl, mat, w, h0, bonus), dict(ekw, **over)))
+
+    def sw(name, jobs, m=mat, kw=gaps):
+        q, ql, t, tl, minsc, endsc = jobs
+        sets.append(("localsw", f"edge jobs, {name}",
+                     (q, ql, t, tl, m, minsc, endsc), kw))
+
+    full = extend_edge_jobs(1, Q_RAND, T_RAND)
+    ext("zdrop 100", full)
+    ext("zdrop 8", extend_edge_jobs(2, Q_RAND, T_RAND), zdrop=8)
+    ext("Q=40 T=64", extend_edge_jobs(3, 40, 64))
+    ext("one job", tuple(a[11:12] for a in full))
+    dead = list(full)
+    dead[1] = np.where(np.arange(len(dead[1])) % 37 == 0, dead[1], 0
+                       ).astype(np.int32)
+    ext("qlen zeroed on 36 of 37 lanes", dead)
+    big = list(full)
+    big[5] = big[5] * 5000
+    ext("h0 x 5000 (scores beyond 16 bits)", big)
+    ext("gaps 4+2 / 7+1, zdrop 20", extend_edge_jobs(4, Q_RAND, T_RAND),
+        o_del=4, e_del=2, o_ins=7, e_ins=1, zdrop=20)
+
+    for T in (1024, 256):
+        sw(f"T={T}", localsw_edge_jobs(T, Q_SW, T))
+    one = localsw_edge_jobs(5, Q_SW, 1024)
+    sw("one job", tuple(a[13:14] for a in one))
+    sw("Q=40 T=96", localsw_edge_jobs(6, 40, 96))
+    k = list(one)
+    k[4] = np.minimum(k[4], 1 << 20) * 1000
+    k[5] = np.where(k[5] < 1 << 20, k[5] * 1000, k[5])
+    sw("scores x 1000 (beyond 16 bits)", k, m=mat * 1000,
+       kw={n: v * 1000 for n, v in gaps.items()})
+    return sets
+
+
 def _cuda_ms(fn, reps: int) -> float:
     import torch
 
@@ -353,6 +417,57 @@ def _cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _kernel_events(run) -> tuple[list, float]:
+    """(the device-kernel events of `run` under torch.profiler, its wall
+    seconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(WORK, exist_ok=True)
+    trace = os.path.join(WORK, "kernel_events.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"], wall
+
+
+def _by_name(kern: list) -> dict:
+    """Device microseconds and launches by kernel name, largest first."""
+    tot: dict = {}
+    for e in kern:
+        us, n = tot.get(e["name"], (0.0, 0))
+        tot[e["name"]] = (us + e["dur"], n + 1)
+    return dict(sorted(tot.items(), key=lambda kv: -kv[1][0]))
+
+
+def device_ms(fn, own: str) -> tuple[float, float, int] | None:
+    """One call of wrapper `fn` on the card's own clock: (ms inside the
+    kernels whose name contains `own`, ms inside all its kernels, how many
+    kernels it launches), averaged over the calls the profiler traced.
+    None where the profiler traced no launch of `own`: a window this short
+    sometimes comes back empty, and on some machines every one does.  The
+    split is a report beside the CUDA-event time, which is the number the
+    checks and the kernels line use, so its absence fails nothing."""
+    for reps in (5, 20, 80):
+        kern, _ = _kernel_events(lambda: [fn() for _ in range(reps)])
+        # a call launches `own` once; the profiler may drop some calls
+        mine = [e["dur"] for e in kern if own in e["name"]]
+        if mine:
+            calls = len(mine)
+            return (sum(mine) / calls / 1e3,
+                    sum(e["dur"] for e in kern) / calls / 1e3,
+                    len(kern) // calls)
+        time.sleep(0.2)
+    return None
+
+
 def same_fields(what: str, got, want) -> int:
     """Holds every field of `got` to `want` (named tuples of tensors):
     same shape and no element differing; returns max |got - want|."""
@@ -364,6 +479,28 @@ def same_fields(what: str, got, want) -> int:
         diff = int((g.to(torch.int64) - p.to(torch.int64)).abs().max()) \
             if g.numel() else 0
         check(diff == 0, f"{what}, field {field} (max |diff| {diff})")
+        err = max(err, diff)
+    return err
+
+
+def same_prep(name: str, a: tuple, kw: dict) -> int:
+    """K1's prep kernel (band clamp, sort keys) against clamp_band_batch
+    and job_keys on the jobs `a`; returns max |diff|."""
+    from tpubwa_torch.ops.extend import clamp_band_batch
+    from tpubwa_torch.ops.extend_cuda import job_keys, job_keys_core
+
+    _, qlen, _, tlen, _, w, _, bonus = a
+    Q, T = a[0].shape[1], a[2].shape[1]
+    gaps = {k: v for k, v in kw.items() if k != "zdrop"}
+    wc, keys = job_keys_core(qlen, tlen, w, bonus, Q, T, **gaps)
+    want_wc = clamp_band_batch(w, qlen, gaps["mat_max"], gaps["o_del"],
+                               gaps["e_del"], gaps["o_ins"], gaps["e_ins"],
+                               bonus)
+    want_keys = job_keys(qlen, tlen, want_wc, Q, T)
+    err = 0
+    for what, g, p in (("bands", wc, want_wc), ("keys", keys, want_keys)):
+        diff = int((g.long() - p.long()).abs().max()) if g.numel() else 0
+        check(diff == 0, f"extend prep {what} == plain on {name}")
         err = max(err, diff)
     return err
 
@@ -388,6 +525,8 @@ def compare(kernel: str, name: str, args: tuple, kw: dict) -> dict:
         plain(*a, **kw, stats=stats)
     torch.cuda.synchronize()
     err = same_fields(f"{kernel} == plain on {name}", got, want)
+    if kernel == "extend":
+        err = max(err, same_prep(name, a, kw))
     ms = _cuda_ms(lambda: fn(*a, **kw), reps=20)
     plain_ms = _cuda_ms(lambda: plain(*a, **kw), reps=2)
     fn.launches = n0
@@ -398,18 +537,33 @@ def compare(kernel: str, name: str, args: tuple, kw: dict) -> dict:
         # row is then te), else all tlen of them; qlen cells a row
         qlen, tlen, endsc = a[1].clamp(0, Q), a[3].clamp(0, T), a[6]
         rows = torch.where(want.score >= endsc, want.te + 1, tlen)
-        cells = int((rows.to(torch.int64) * qlen).sum())
+        per_job = rows.to(torch.int64) * qlen
+        cells = int(per_job.sum())
         ops = cells * OPS_SW_CELL
     else:
+        per_job = stats["cells_per_job"]
         cells = stats["cells"]
         ops = cells * OPS_EXT_CELL
+    pj = per_job.double()
+    live = int((per_job > 0).sum())
+    print(f"[{kernel}] {name}: cells a job: mean {float(pj.mean()):.1f}, "
+          f"p99 {float(torch.quantile(pj, 0.99)):.0f}, max {int(pj.max())}; "
+          f"{live} of {J} jobs visit a cell")
     moved = _nbytes(*(x for x in a if x.dim() > 0 and x.shape[0] == J),
                     *got)
     b = bound(moved, ops)
+    with keep_launches():
+        split = device_ms(lambda: fn(*a, **kw), KERNEL_FUNCS[kernel])
+    on_card = (f"{KERNEL_FUNCS[kernel]} {split[0]:.4f} ms of {split[1]:.4f} "
+               f"ms in the wrapper's {split[2]} device kernels" if split
+               else f"{KERNEL_FUNCS[kernel]} not measured (the profiler "
+               "traced none of its launches)")
     print(f"[{kernel}] {name}: J={J} Q={Q} T={T}: kernel == plain on all "
           f"{len(want)} fields (max |err| {err}); kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms; {cells} cells visited, {moved} bytes: "
-          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+          f"({100 * b['bound_ms'] / ms:.1f}% of it reached); on the card's "
+          f"clock {on_card}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
 
 
@@ -751,31 +905,30 @@ def capture_first(module, attr: str, captured: list):
     return cm()
 
 
-def profiled_se(aligner, fq: str, tag: str) -> None:
-    """One SE pass under torch.profiler: the number of device kernels,
-    the device time and its share of the pass."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    trace = os.path.join(WORK, f"profile_{tag}.json")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, wall = _timed_se(aligner, fq)
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = json.load(f)["traceEvents"]
-    kern = [e for e in events if e.get("cat") == "kernel"]
+def profiled_pass(tag: str, run, history: str = "", top: int = 6) -> None:
+    """One pass (`run`) under torch.profiler: the number of device
+    kernels, the device time and its share of the pass, the device time by
+    kernel, and the totals of the port's own kernels."""
+    for _ in range(3):      # a trace sometimes comes back with no events
+        kern, wall = _kernel_events(run)
+        if kern:
+            break
     check(len(kern) > 0, "the profiler traced device kernels")
     dev_s = sum(e["dur"] for e in kern) / 1e6
     print(f"[{tag}] profiled pass: {len(kern)} device kernels, "
           f"{dev_s:.3f} s of device time in {wall:.2f} s = "
-          f"{100 * dev_s / wall:.1f}% busy (the same pass before K2 and K3: "
-          "637,745 kernels, 1.081 s in 18.74 s = 5.8%)")
-    by_name: dict = {}
-    for e in kern:
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"[{tag}]   {us / 1e3:9.3f} ms  {name[:90]}")
+          f"{100 * dev_s / wall:.1f}% busy{history}")
+    by_name = _by_name(kern)
+    for name, (us, n) in list(by_name.items())[:top]:
+        print(f"[{tag}]   {us / 1e3:9.3f} ms in {n:5d} launches  "
+              f"{name[:80]}")
+    own = ("extend_kernel", "class_bounds_kernel", "extend_b_kernel",
+           "localsw_kernel", "global_align_kernel", "round1_kernel",
+           "round2_kernel", "round3_kernel", "sa_sampled_kernel")
+    print(f"[{tag}] the port's kernels in that pass: " + "; ".join(
+        f"{o} {sum(us for nm, (us, _) in by_name.items() if o in nm) / 1e3:.3f}"
+        f" ms / {sum(n for nm, (_, n) in by_name.items() if o in nm)}"
+        for o in own if any(o in nm for nm in by_name)))
 
 
 def realistic_fixture() -> tuple[str, str]:
@@ -844,12 +997,15 @@ def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
     captured: dict = {}
 
     def capturing_core(*args, **kw):
-        # the first left and the first right call of the run (the caller
-        # is extend_jobs_left / extend_jobs_right)
+        # the first left and the first right wave of the run (the caller's
+        # caller is extend_jobs_left / extend_jobs_right), each with its
+        # retry launch, whose lanes are mostly dead
         side = sys._getframe(2).f_code.co_name.rsplit("_", 1)[-1]
-        if side in ("left", "right") and side not in captured:
-            captured[side] = (tuple(a.clone() if torch.is_tensor(a) else a
-                                    for a in args), dict(kw))
+        if side in ("left", "right"):
+            key = side if side not in captured else f"{side} retry"
+            if key not in captured:
+                captured[key] = (tuple(a.clone() if torch.is_tensor(a) else a
+                                       for a in args), dict(kw))
         return extend_core(*args, **kw)
 
     aligner.ext_core = capturing_core
@@ -872,8 +1028,8 @@ def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
     check(launches["global_align"] > 0, "the SE path launched K3 (global "
           "alignment)")
     check(len(ga_captured) == 1, "first _ga_rows call captured")
-    check(set(captured) == {"left", "right"},
-          "left and right core inputs captured")
+    check(set(captured) == {"left", "left retry", "right", "right retry"},
+          "left and right core inputs captured, each with its retry launch")
     gate(out.getvalue())
     body = out.getvalue()
 
@@ -888,7 +1044,9 @@ def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
     print(f"[se] warm run: {N_READS} reads in {warm:.2f} s = "
           f"{N_READS / warm:.1f} reads/s (batch {BATCH})")
     print_phases("se", aligner.timers)
-    profiled_se(aligner, fq, "se")
+    profiled_pass("se", lambda: _timed_se(aligner, fq),
+                  history=" (the same pass before K2 and K3: 637,745 "
+                  "kernels, 1.081 s in 18.74 s = 5.8%)")
     return dict(captured=captured, ga=ga_captured[0], launches=launches,
                 fa=fa, fq=fq, idx=idx, aligner=aligner, body=body)
 
@@ -1002,6 +1160,11 @@ def phase_pe(pe_files: tuple, device: str = "cuda") -> tuple:
                   "the layout-b pass launched K1b and not K1")
             pe_gate(out.getvalue())
             b_launches = n
+    aligner.ext_core = EXT_CORES["t"]
+    with keep_launches():
+        profiled_pass("pe", lambda: check(pair.align_pe_fastq(
+            aligner, fq1, fq2, io.StringIO()) == 0,
+            "profiled PE pass exits 0"), top=12)
     return launches, b_launches, captured[0], ga_captured[0]
 
 
@@ -1339,6 +1502,8 @@ def main() -> int:
     res["localsw"] = [compare("localsw", f"random rescue jobs T={T}",
                               *rescue_jobs(T, J_SW, Q_SW, T))
                       for T in (1024, 256)]
+    for kern, name, a, k in edge_sets():
+        res[kern].append(compare(kern, name, a, k))
     fa, fq = realistic_fixture()
     pe_files = pe_fixture()
     res["smem_chain"] = [phase_k2({"se": (fa, fq),

@@ -6,7 +6,8 @@ against ``sa_lookup_sampled``, K2 (csrc/smem_chain.cu; three rounds,
 int32 and int64) against the plain chains, K3 (csrc/global_align.cu; pack
 and step rows) against ``_ga_rows_plain`` and
 ``global_align_cigar_batch``, exact on every field, and each wrapper's
-launch counter; and a ``-t 4`` SE run equal to ``-t 1``.  Needs a CUDA
+launch counter (K1 and K4 also on the adversarial job sets of
+``utils.sim``, with scores beyond 16 bits among them); and a ``-t 4`` SE run equal to ``-t 1``.  Needs a CUDA
 card and nvcc (the kernels are compiled on first use); skipped where
 torch sees no GPU.  Imports neither jax nor the JAX package, so it runs on
 a machine without them:
@@ -108,6 +109,140 @@ def test_localsw_kernel_matches_plain_on_card(cuda, J, Q, T):
     want = localsw_batch(*args, **kw)
     for g, p in zip(got, want):
         assert torch.equal(g.cpu(), p.cpu())
+
+
+# K1 and K4 on the adversarial job sets of utils.sim (qlen 0, 1, 31, 32,
+# 33, Q; tlen 0, 1, T; w 0 and >= qlen; all-N; ties; z-drops; endsc on row
+# 0 and never), J a multiple of no group or block size
+
+def _edge_extend(case):
+    from tpubwa_torch.utils.sim import extend_edge_jobs
+
+    kw = dict(KW)
+    sl = slice(None)
+    Q, T = 192, 768
+    if case == "zdrop8":
+        kw["zdrop"] = 8
+    elif case == "no_zdrop":
+        kw["zdrop"] = 0
+    elif case == "small_q":
+        Q, T = 40, 64
+    elif case == "wide_q":
+        Q, T = 256, 300
+    elif case == "one_job":
+        sl = slice(11, 12)
+    elif case == "skewed_gaps":
+        kw.update(o_del=4, e_del=2, o_ins=7, e_ins=1, zdrop=20)
+    jobs = [a[sl] for a in extend_edge_jobs(len(case), Q, T)]
+    if case == "mostly_dead":       # the retry launch: qlen zeroed
+        jobs[1] = np.where(np.arange(len(jobs[1])) % 37 == 0, jobs[1], 0
+                           ).astype(np.int32)
+    elif case == "beyond_16_bits":  # scores that no 16-bit lane holds
+        jobs[5] = jobs[5] * 5000
+    return jobs, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "zdrop8", "no_zdrop", "small_q",
+                                  "wide_q", "one_job", "mostly_dead",
+                                  "skewed_gaps", "beyond_16_bits"])
+def test_kernel_matches_plain_on_edge_jobs(cuda, case):
+    from tpubwa_torch.ops.extend import _extend_core
+    from tpubwa_torch.ops.extend_cuda import extend_core
+
+    jobs, kw = _edge_extend(case)
+    q, ql, t, tl, w, h0, bonus = (torch.as_tensor(a, device=cuda)
+                                  for a in jobs)
+    mat = torch.as_tensor(OPT.score_matrix(), device=cuda)
+    n0 = extend_core.launches
+    got = extend_core(q, ql, t, tl, mat, w, h0, bonus, **kw)
+    torch.cuda.synchronize()
+    assert extend_core.launches == n0 + 1
+    want = _extend_core(q, ql, t, tl, mat, w, h0, bonus, **kw)
+    for name, g, p in zip(want._fields, got, want):
+        assert torch.equal(g.cpu(), p.cpu()), name
+    if case == "beyond_16_bits":
+        assert int(got.score.max()) > 1 << 16
+    if case == "zdrop8":
+        assert bool(((got.tle < tl) & (got.score > h0)).any())
+    # the same jobs as bytes, and as column slices of one int32 buffer
+    # (both are read where they lie), give the same
+    buf = torch.cat([q, t, q], dim=1)
+    for qq, tt in ((q.to(torch.uint8), t.to(torch.uint8)),
+                   (buf[:, :q.shape[1]], buf[:, q.shape[1]:-q.shape[1]])):
+        again = extend_core(qq, ql, tt, tl, mat, w, h0, bonus, **kw)
+        for name, g, p in zip(want._fields, again, want):
+            assert torch.equal(g.cpu(), p.cpu()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "skewed_gaps", "mostly_dead"])
+def test_prep_kernel_matches_plain_on_card(cuda, case):
+    """K1's prep kernel (band clamp and sort keys) against
+    ``clamp_band_batch`` and ``job_keys``."""
+    from tpubwa_torch.ops.extend import clamp_band_batch
+    from tpubwa_torch.ops.extend_cuda import job_keys, job_keys_core
+
+    jobs, kw = _edge_extend(case)
+    _, ql, _, tl, w, _, bonus = (torch.as_tensor(a, device=cuda)
+                                 for a in jobs)
+    w = torch.where(torch.arange(len(w), device=cuda) % 5 == 0, -w, w)
+    bonus = bonus + torch.arange(len(w), device=cuda, dtype=torch.int32) % 9
+    gaps = {k: v for k, v in kw.items() if k != "zdrop"}
+    Q, T = jobs[0].shape[1] - 7, jobs[2].shape[1] - 7   # lengths get cut
+    wc, keys = job_keys_core(ql, tl, w, bonus, Q, T, **gaps)
+    want_wc = clamp_band_batch(w, ql, gaps["mat_max"], gaps["o_del"],
+                               gaps["e_del"], gaps["o_ins"], gaps["e_ins"],
+                               bonus)
+    assert torch.equal(wc, want_wc)
+    assert torch.equal(keys, job_keys(ql, tl, want_wc, Q, T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "t256", "small_q", "wide_q",
+                                  "one_job", "skewed_gaps",
+                                  "beyond_16_bits"])
+def test_localsw_kernel_matches_plain_on_edge_jobs(cuda, case):
+    from tpubwa_torch.ops.localsw import localsw_batch
+    from tpubwa_torch.ops.localsw_cuda import localsw_core
+    from tpubwa_torch.utils.sim import localsw_edge_jobs
+
+    kw = dict(o_del=OPT.o_del, e_del=OPT.e_del, o_ins=OPT.o_ins,
+              e_ins=OPT.e_ins)
+    Q, T = {"t256": (192, 256), "small_q": (40, 96),
+            "wide_q": (256, 300)}.get(case, (192, 1024))
+    jobs = list(localsw_edge_jobs(len(case), Q, T))
+    mat = OPT.score_matrix()
+    if case == "one_job":
+        jobs = [a[13:14] for a in jobs]
+    elif case == "skewed_gaps":
+        kw.update(o_del=4, e_del=2, o_ins=7, e_ins=1)
+    elif case == "beyond_16_bits":   # every score and penalty x 1000
+        mat = mat * 1000
+        kw = {k: v * 1000 for k, v in kw.items()}
+        jobs[4] = np.minimum(jobs[4], 1 << 20) * 1000
+        jobs[5] = np.where(jobs[5] < 1 << 20, jobs[5] * 1000, jobs[5])
+    args = [torch.as_tensor(a, device=cuda) for a in
+            (*jobs[:4], mat, *jobs[4:])]
+    n0 = localsw_core.launches
+    got = localsw_core(*args, **kw)
+    torch.cuda.synchronize()
+    assert localsw_core.launches == n0 + 1
+    want = localsw_batch(*args, **kw)
+    for name, g, p in zip(want._fields, got, want):
+        assert torch.equal(g.cpu(), p.cpu()), name
+    if case == "beyond_16_bits":
+        assert int(got.score.max()) > 1 << 16
+    if case == "default":
+        assert int((got.score2 > 0).sum()) > 5
+    # bytes, and column slices of one int32 buffer, are read where they lie
+    q, t = args[0], args[2]
+    buf = torch.cat([q, t, q[:, :4]], dim=1)
+    for qq, tt in ((q.to(torch.uint8), t.to(torch.uint8)),
+                   (buf[:, :q.shape[1]], buf[:, q.shape[1]:-4])):
+        again = localsw_core(qq, args[1], tt, *args[3:], **kw)
+        for name, g, p in zip(want._fields, again, want):
+            assert torch.equal(g.cpu(), p.cpu()), name
 
 
 @pytest.mark.cuda

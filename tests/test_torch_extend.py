@@ -216,3 +216,155 @@ def test_retry_band_path_matches_jax():
     np.testing.assert_array_equal(_rows(got), _rows(want.left))
     np.testing.assert_array_equal(aw.numpy(), np.asarray(want.aw0))
     assert (aw.numpy() == 4).any()
+
+
+# ------------------------- what K1's wrapper does around the kernel ----
+
+def _edge(zdrop, Q=40, T=64):
+    from tpubwa_torch.utils.sim import extend_edge_jobs
+
+    return extend_edge_jobs(zdrop, Q, T)
+
+
+@pytest.mark.parametrize("zdrop", [100, 8])
+def test_edge_jobs_plain_equals_jax(zdrop):
+    """The adversarial job set (qlen 0/1/31/32/33/Q, tlen 0/1/T, w 0 and
+    >= qlen, all-N, ties, z-drops) on the plain version and the JAX one."""
+    from tpubwa.ops.extend import extend_batch
+    from tpubwa_torch.ops.extend import _extend_core
+
+    q, qlen, t, tlen, w, h0, bonus = _edge(zdrop)
+    kw = _kw(zdrop)
+    want = _rows(extend_batch(*(jnp.asarray(a) for a in (
+        q, qlen, t, tlen, MAT, w, h0, bonus)), **kw))
+    got = _rows(_extend_core(*(torch.as_tensor(a) for a in (
+        q, qlen, t, tlen, MAT, w, h0, bonus)), **kw))
+    np.testing.assert_array_equal(got, want)
+    dead = (qlen == 0) | (tlen == 0)
+    assert dead.any() and (got[0] == h0)[dead].all()
+    assert (got[2] < tlen)[~dead].any()          # some job ends early
+    assert (got[3] > 0).any() and (got[4] == -1)[dead].all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_job_order_plain_scatter_equals_plain(seed):
+    """K1 runs the jobs in ``job_order``'s order and writes each result to
+    its job's slot: ordering, the plain version, then the scatter must be
+    the plain version (and the JAX function), dead lanes and ties
+    included; the keys put long jobs first, dead ones last, and every job
+    into a size class that holds its qlen."""
+    from tpubwa.ops.extend import extend_batch
+    from tpubwa_torch.ops.extend import _extend_core, clamp_band_batch
+    from tpubwa_torch.ops.extend_cuda import (KEY_SHIFT, SIZE_CLASSES,
+                                              job_keys, job_keys_core,
+                                              job_order, size_class)
+
+    q, qlen, t, tlen, w, h0, bonus = _edge(seed) if seed else _lanes(4)
+    qlen[5:9] = qlen[5]                            # equal keys
+    tlen[5:9] = tlen[5]
+    Q, T = q.shape[1], t.shape[1]
+    kw = _kw(OPT.zdrop)
+    T_ = torch.as_tensor
+    args = [T_(a) for a in (q, qlen, t, tlen, MAT, w, h0, bonus)]
+    want = _rows(_extend_core(*args, **kw))
+    wc = clamp_band_batch(T_(w), T_(qlen), OPT.a, OPT.o_del, OPT.e_del,
+                          OPT.o_ins, OPT.e_ins, T_(bonus))
+    keys = job_keys(T_(qlen), T_(tlen), wc, Q, T)
+    gaps = {k: v for k, v in kw.items() if k != "zdrop"}
+    wc2, keys2 = job_keys_core(T_(qlen), T_(tlen), T_(w), T_(bonus), Q, T,
+                               **gaps)
+    assert torch.equal(wc2, wc) and torch.equal(keys2, keys)
+    skeys, o = job_order(keys)
+    assert skeys.dtype == torch.int32 and o.dtype == torch.int64
+    assert sorted(o.tolist()) == list(range(len(qlen)))
+    assert torch.equal(skeys, keys[o])
+    assert bool((skeys[:-1] >= skeys[1:]).all())
+    dead = (qlen == 0) | (tlen == 0)
+    n_live = int((~dead).sum())
+    assert not dead[o.numpy()[:n_live]].any() and dead[o.numpy()[n_live:]].all()
+    assert (keys.numpy()[~dead] >> KEY_SHIFT == qlen[~dead]).all()
+
+    cls = size_class(skeys).numpy()
+    assert (np.diff(cls) >= 0).all()               # classes are contiguous
+    assert (cls[n_live:] == len(SIZE_CLASSES)).all()
+    for c, (_, lanes, cols) in enumerate(SIZE_CLASSES):
+        assert (qlen[o.numpy()][cls == c] <= lanes * cols).all()
+
+    perm = [a[o] if a.dim() and a.shape[0] == len(qlen) else a for a in args]
+    res = _extend_core(*perm, **kw)
+    got = np.empty_like(want)
+    got[:, o.numpy()] = _rows(res)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _rows(extend_batch(
+        *(jnp.asarray(a) for a in (q, qlen, t, tlen, MAT, w, h0, bonus)),
+        **kw)))
+
+
+def test_size_classes_hold_every_qlen():
+    from tpubwa_torch.ops.extend_cuda import (KEY_SHIFT, MAX_Q, SIZE_CLASSES,
+                                              job_keys, size_class)
+
+    qlen = torch.arange(0, MAX_Q + 40, dtype=torch.int32)
+    one = torch.ones_like(qlen)
+    keys = job_keys(qlen, 500 * one, 100 * one, MAX_Q, 768)
+    cls = size_class(keys).tolist()
+    cap = [lanes * cols for _, lanes, cols in SIZE_CLASSES]
+    for ql, k, c in zip(qlen.tolist(), keys.tolist(), cls):
+        if ql == 0:
+            assert k == 0 and c == len(SIZE_CLASSES)
+        else:
+            assert k >> KEY_SHIFT == min(ql, MAX_Q) <= cap[c]
+            assert c == len(SIZE_CLASSES) - 1 or k >> KEY_SHIFT > cap[c + 1]
+    # tlen 0, or a negative length, is a dead job whatever its qlen
+    assert job_keys(qlen, 0 * one, one, MAX_Q, 768).max() == 0
+    assert job_keys(-qlen, one, one, MAX_Q, 768).max() == 0
+    # rows never spill into the qlen bits
+    big = job_keys(qlen, (1 << 20) * one, (1 << 20) * one, MAX_Q, 1 << 20)
+    assert torch.equal(big >> KEY_SHIFT, qlen.clamp(max=MAX_Q))
+
+
+def test_codes_are_read_as_given():
+    """uint8 and int32 codes with unit stride along a row go to the kernel
+    as they are, a column slice included; anything else is copied to
+    contiguous int32 with the same values."""
+    from tpubwa_torch.ops.extend_cuda import as_code_pair, as_codes
+
+    buf = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 5, (7, 30)).astype(np.int32))
+    view = buf[:, 3:19]                            # rows 30 ints apart
+    assert as_codes(view) is view and as_codes(buf) is buf
+    b8 = buf.to(torch.uint8)
+    assert as_codes(b8) is b8 and as_codes(b8[:, 2:9]) is not None
+    assert as_codes(b8[:, 2:9]).stride(0) == 30
+    assert as_codes(buf[:1, ::2]).shape == (1, 15)
+    for odd in (buf[:, ::2], buf.T, buf.to(torch.int64), buf.to(torch.int8)):
+        got = as_codes(odd)
+        assert got.dtype == torch.int32 and got.is_contiguous()
+        assert torch.equal(got, odd.to(torch.int32))
+    # a kernel instance reads one code type: a mixed pair becomes int32
+    qc, tc = as_code_pair(b8[:, :9], view)
+    assert qc.dtype == tc.dtype == torch.int32 and tc is view
+    assert torch.equal(qc, buf[:, :9])
+    qc, tc = as_code_pair(b8[:, :9], b8[:, 9:])
+    assert qc.dtype == tc.dtype == torch.uint8 and qc.stride(0) == 30
+
+
+def test_kernel_wrapper_refuses_what_the_kernel_cannot_hold():
+    """K1's launch path checks its inputs before it builds anything: a
+    query wider than its largest group, a matrix that is not 5 x 5, and
+    per-job vectors of the wrong length raise."""
+    from tpubwa_torch.ops.extend_cuda import MAX_Q, _launch_k1
+
+    def call(Q=8, J=4, mat=MAT, n=None):
+        n = J if n is None else n
+        z = torch.zeros(n, dtype=torch.int32)
+        return _launch_k1(torch.zeros((J, Q), dtype=torch.int32), z,
+                          torch.zeros((J, 9), dtype=torch.int32), z, mat, z,
+                          z, z, **_kw(100))
+
+    with pytest.raises(ValueError, match="Q="):
+        call(Q=MAX_Q + 1)
+    with pytest.raises(ValueError, match="5x5"):
+        call(mat=np.zeros(24, np.int32))
+    with pytest.raises(ValueError, match="qlen"):
+        call(n=3)

@@ -199,3 +199,56 @@ def test_matesw_rounds_match_jax(name):
     assert [dataclasses.asdict(r) for r in ma_port] == \
         [dataclasses.asdict(r) for r in ma_jax]
     assert len(ma_port) == n_after
+
+
+# ------------------------- the adversarial jobs, and K4's wrapper ----
+
+@pytest.mark.parametrize("T", [96, 300])
+def test_edge_jobs_plain_equals_jax_and_ref(T):
+    """qlen 0/1/31/32/33/Q, tlen 0/1/T, endsc reached on row 0 and never,
+    all-N, ties for te and qe, a second copy for score2."""
+    from tpubwa.ops.localsw import localsw_ref
+    from tpubwa_torch.utils.sim import localsw_edge_jobs
+
+    jobs = localsw_edge_jobs(T, 40, T)
+    got, want = _both(jobs)
+    np.testing.assert_array_equal(got, want)
+    q, qlen, t, tlen, minsc, endsc = jobs
+    for b in range(0, len(qlen), 5):
+        if qlen[b] == 0:
+            continue
+        ref = localsw_ref(q[b, :qlen[b]], t[b, :tlen[b]], MAT, **KW,
+                          minsc=int(minsc[b]), endsc=int(endsc[b]))
+        assert tuple(got[:, b]) == ref, b
+    dead = (qlen == 0) | (tlen == 0)
+    assert (got[:, dead] == np.array([[0], [-1], [-1], [-1]])).all()
+    assert (got[3] > 0).any()                           # a score2
+    assert ((endsc == 1) & (got[1] == 0)).any()         # stopped on row 0
+    assert ((endsc == 30) & (got[0] >= 30) & (got[1] < tlen - 1)).any()
+
+
+def test_wrapper_reads_buffer_slices_and_refuses_wide_queries():
+    from tpubwa_torch.ops import localsw_cuda
+    from tpubwa_torch.ops.extend_cuda import as_codes
+
+    # the rescue rounds hand over column slices of one int32 buffer
+    buf = torch.as_tensor(np.random.default_rng(1).integers(
+        0, 5, (6, 40 + 96 + 4)).astype(np.int32))
+    for view in (buf[:, :40], buf[:, 40:136]):
+        got = as_codes(view)                    # no copy: same memory
+        assert got.data_ptr() == view.data_ptr() and got.stride(0) == 140
+
+    z = torch.zeros(3, dtype=torch.int32)
+
+    def call(Q=8, mat=MAT, n=3):
+        v = torch.zeros(n, dtype=torch.int32)
+        return localsw_cuda._launch(
+            torch.zeros((3, Q), dtype=torch.int32), v,
+            torch.zeros((3, 9), dtype=torch.int32), z, mat, z, z, **KW)
+
+    with pytest.raises(ValueError, match="Q="):
+        call(Q=localsw_cuda.MAX_Q + 1)
+    with pytest.raises(ValueError, match="qlen"):
+        call(n=2)
+    with pytest.raises(ValueError, match="5x5"):
+        call(mat=np.zeros(24, np.int32))

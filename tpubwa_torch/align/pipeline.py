@@ -52,8 +52,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-# the extension kernel per layout: "t" is K1 (a thread per job), "b" is
-# K1b (a warp per job); both compute the same function
+# the extension kernel per layout: "t" is K1 (a group of lanes per job,
+# sized by the job), "b" is K1b (a warp per job); both compute the same
+# function
 EXT_CORES = {"t": extend_core, "b": extend_core_b}
 _EXT_SOURCES = {"t": "extend", "b": "extend_b"}
 

@@ -9,7 +9,7 @@
 ``mem`` runs on ``--device`` (default ``cuda``; it fails when no GPU is
 visible — pass ``--device cpu`` to run on the CPU).  A second reads file
 aligns paired ends.  ``--ext-layout`` picks the extension kernel: ``t``
-(one thread per job, the default) or ``b`` (one warp per job); the
+(a group of lanes per job, the default) or ``b`` (one warp per job); the
 output is the same.  The index format on disk is the JAX package's
 (an index written by either package loads in the other); an index of
 2^31 characters or more loads in the wide (int64) layout.  None of the
@@ -112,8 +112,9 @@ def main(argv: list[str] | None = None) -> int:
     pm.add_argument("--device", default="cuda",
                     help="torch device to align on (default: cuda)")
     pm.add_argument("--ext-layout", default="t", choices=["t", "b"],
-                    help="extension kernel: t = a thread per job (default),"
-                         " b = a warp per job; the output is the same")
+                    help="extension kernel: t = a group of lanes per job "
+                         "(default), b = a warp per job; the output is the "
+                         "same")
     pm.add_argument("-t", type=int, default=1,
                     help="host worker threads: N > 1 aligns whole batches "
                          "in N threads, written in input order")

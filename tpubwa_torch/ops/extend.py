@@ -61,7 +61,8 @@ def _extend_core(query: torch.Tensor, qlen: torch.Tensor,
     Rows stop once no lane is alive: dead lanes are no-ops, so this
     changes nothing in the result.  ``stats`` (a dict, for measurement)
     receives ``cells``: the band cells of the rows each job really visits
-    before its own exit, the work a per-job kernel has to do."""
+    before its own exit, the work a per-job kernel has to do, and
+    ``cells_per_job``, the same count job by job (int64 [B])."""
     B, Q = query.shape
     T = target.shape[1]
     dev = query.device
@@ -93,7 +94,7 @@ def _extend_core(query: torch.Tensor, qlen: torch.Tensor,
     max_off = torch.zeros(B, dtype=I32, device=dev)
     alive = (qlen > 0) & (tlen > 0)
     neg_col = torch.full((B, 1), NEG, dtype=I32, device=dev)
-    cells = torch.zeros((), dtype=torch.int64, device=dev)
+    cells = torch.zeros(B, dtype=torch.int64, device=dev)
 
     for i in range(T):
         if i % ALIVE_CHECK == 0 and not bool(alive.any()):
@@ -104,7 +105,7 @@ def _extend_core(query: torch.Tensor, qlen: torch.Tensor,
         in_band = (jb >= i - w[:, None]) & (jb < i + w[:, None] + 1) \
             & (jb < qlen[:, None])
         if stats is not None:
-            cells += (in_band & act[:, None]).sum()
+            cells += (in_band & act[:, None]).sum(dim=1)
         is_n = q_is_n | (t_i >= 4)[:, None]
         s_row = torch.where(is_n, s_n, torch.where(
             t_i[:, None] == query, s_match, s_mis))
@@ -170,6 +171,7 @@ def _extend_core(query: torch.Tensor, qlen: torch.Tensor,
         M_prev = torch.where(keep, M, M_prev)
 
     if stats is not None:
-        stats["cells"] = int(cells)
+        stats["cells"] = int(cells.sum())
+        stats["cells_per_job"] = cells
     return ExtendBatchResult(score=best, qle=best_j + 1, tle=best_i + 1,
                              gtle=max_ie + 1, gscore=gscore, max_off=max_off)

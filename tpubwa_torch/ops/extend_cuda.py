@@ -2,8 +2,16 @@
 
 Two kernels compute ``ops.extend._extend_core``'s function bit for bit:
 
-* K1, ``csrc/extend.cu``: one thread per job (port of the Pallas kernel
-  ``tpubwa.ops.extend_pallas._kernel_t``, the transposed layout);
+* K1, ``csrc/extend.cu``: a group of 8, 16 or 32 lanes per job, sized by
+  the job's qlen, on jobs ordered longest first (port of the Pallas
+  kernel ``tpubwa.ops.extend_pallas._kernel_t``, the transposed layout).
+  What surrounds the kernel has plain versions that the CPU tests reach:
+  ``job_keys_core`` (the band clamp and the sort keys: ``clamp_band_batch``
+  and ``job_keys`` on the CPU, one small kernel of the same source on the
+  card), ``job_order`` (the ordering; the kernel reads it and writes each
+  result to its job's own slot, so nothing is permuted in memory),
+  ``size_class`` (the classes the kernel derives from the sorted keys)
+  and ``as_codes`` (which code tensors are read as they are);
 * K1b, ``csrc/extend_b.cu``: one warp per job, a job's row spread across
   the lanes (port of ``_kernel``, the round-4 [B, Q] layout).  Its
   ablation variants (``VARIANTS``, the port of
@@ -25,14 +33,22 @@ from tpubwa_torch.ops import cuda_build
 from tpubwa_torch.ops.extend import (ExtendBatchResult, _extend_core,
                                      clamp_band_batch, score_values)
 
-# kernel name -> (C entry point, int arguments after the 7 pointers)
-_ENTRY = {"extend": ("tpubwa_extend_launch", 11),
-          "extend_b": ("tpubwa_extend_b_launch", 12)}
+I32 = torch.int32
+
+# source -> ((name in _fns, C entry point, pointer arguments, int
+# arguments), ...)
+_ENTRY = {"extend": (("extend", "tpubwa_extend_launch", 11, 11),
+                     ("extend_prep", "tpubwa_extend_prep", 6, 8)),
+          "extend_b": (("extend_b", "tpubwa_extend_b_launch", 7, 12),)}
 # K1b's ablation variants (scripts/ablate_kernel_r5.py), as OR-ed flags:
 # no_cummax 1, no_mj 2, no_m 4, no_hlast 8, no_zdrop 16.  Q = 192 only.
 VARIANTS = {"full": 0, "no_cummax": 1, "no_mj": 2, "no_m+mj": 6,
             "no_hlast": 8, "no_zdrop": 16, "no_all_red": 31}
 MAX_Q_B = 256   # K1b holds ceil(Q/32) <= 8 columns per lane
+MAX_Q = 256     # K1's largest group holds 32 x 8 columns
+# K1's size classes, longest first: (qlen above, lanes a job, columns a lane)
+SIZE_CLASSES = ((128, 32, 8), (64, 32, 4), (32, 16, 4), (0, 8, 4))
+KEY_SHIFT = 16  # key = qlen << 16 | rows; 0 for a job with nothing to do
 
 _fns: dict = {}
 
@@ -45,13 +61,139 @@ def build(name: str = "extend") -> str:
         if name in _fns:
             return ""
         lib, report = cuda_build.build(name)
-        entry, n_int = _ENTRY[name]
-        fn = getattr(lib, entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        _fns[name] = fn
+        for key, entry, n_ptr, n_int in _ENTRY[name]:
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                           + [ctypes.c_void_p])
+            _fns[key] = fn
         return report
+
+
+def job_keys(qlen: torch.Tensor, tlen: torch.Tensor, w: torch.Tensor,
+             Q: int, T: int) -> torch.Tensor:
+    """int32 [J] sort keys of extension jobs (w already band-clamped):
+    ``qlen << 16 | rows`` with rows = min(tlen, qlen + w), the rows the
+    job can visit before its band leaves the query, for a job with qlen
+    and tlen > 0 (lengths cut to Q and T as the kernel cuts them); 0 for a
+    dead job.  A larger key is a longer job."""
+    ql = qlen.to(I32).clamp(max=Q)
+    tl = tlen.to(I32).clamp(max=T)
+    rows = torch.minimum(tl, ql + w.to(I32)).clamp(0, (1 << KEY_SHIFT) - 1)
+    return torch.where((ql > 0) & (tl > 0), (ql << KEY_SHIFT) | rows, 0)
+
+
+def job_order(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the keys in descending order, int64 [J] the job at each sorted
+    position): longest jobs first, dead jobs last.  Device ops only."""
+    return torch.sort(keys, descending=True)
+
+
+def size_class(keys: torch.Tensor) -> torch.Tensor:
+    """The class (row of ``SIZE_CLASSES``, or ``len(SIZE_CLASSES)`` for a
+    dead job) that K1 gives each key."""
+    ql = keys >> KEY_SHIFT
+    cls = torch.full_like(keys, len(SIZE_CLASSES))
+    for c in reversed(range(len(SIZE_CLASSES))):
+        above = SIZE_CLASSES[c][0]
+        cls = torch.where(ql > above if above else ql >= 1, c, cls)
+    return cls
+
+
+def as_codes(codes: torch.Tensor) -> torch.Tensor:
+    """[J, n] base codes as K1 and K4 read them: uint8 or int32 with unit
+    stride along a row are taken as given, rows any distance apart (a
+    column slice of a wider buffer is not copied); anything else is
+    copied to contiguous int32."""
+    if (codes.dtype in (torch.uint8, I32)
+            and (codes.shape[1] == 1 or codes.stride(1) == 1)):
+        return codes
+    return codes.to(I32).contiguous()
+
+
+def as_code_pair(query: torch.Tensor,
+                 target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``as_codes`` of both, in one dtype (a kernel instance reads one)."""
+    qc, tc = as_codes(query), as_codes(target)
+    if qc.dtype != tc.dtype:     # one is uint8: widen that one
+        qc, tc = (a if a.dtype == I32 else a.to(I32).contiguous()
+                  for a in (qc, tc))
+    return qc, tc
+
+
+def job_keys_core(qlen: torch.Tensor, tlen: torch.Tensor, w: torch.Tensor,
+                  end_bonus: torch.Tensor, Q: int, T: int, *, mat_max: int,
+                  o_del: int, e_del: int, o_ins: int,
+                  e_ins: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the clamped band, the sort key) of each job, int32 [J]:
+    ``clamp_band_batch`` and ``job_keys`` for CPU tensors, one launch of
+    ``csrc/extend.cu``'s prep kernel for CUDA tensors."""
+    ins = [a.to(I32).contiguous() for a in (qlen, tlen, w, end_bonus)]
+    if qlen.device.type == "cpu":
+        wc = clamp_band_batch(ins[2], ins[0], mat_max, o_del, e_del, o_ins,
+                              e_ins, ins[3])
+        return wc, job_keys(ins[0], ins[1], wc, Q, T)
+    build("extend")
+    dev = qlen.device
+    J = qlen.shape[0]
+    wc = torch.empty(J, dtype=I32, device=dev)
+    keys = torch.empty(J, dtype=I32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _fns["extend_prep"](
+            *(a.data_ptr() for a in (*ins, wc, keys)), J, Q, T, mat_max,
+            o_del, e_del, o_ins, e_ins, stream)
+    if rc != 0:
+        raise RuntimeError(f"extend prep launch failed: CUDA error {rc}")
+    return wc, keys
+
+
+def _check_jobs(query, target, **vectors) -> None:
+    dev = query.device
+    J = query.shape[0]
+    if target.shape[0] != J:
+        raise ValueError(f"target rows {target.shape[0]} != jobs {J}")
+    for vname, v in vectors.items():
+        if v.shape != (J,) or v.device != dev:
+            raise ValueError(f"{vname}: expected shape ({J},) on {dev}, got "
+                             f"{tuple(v.shape)} on {v.device}")
+    if target.device != dev:
+        raise ValueError(f"target on {target.device}, query on {dev}")
+
+
+def _launch_k1(query, qlen, target, tlen, mat, w, h0, end_bonus, *,
+               o_del, e_del, o_ins, e_ins, zdrop,
+               mat_max) -> ExtendBatchResult:
+    dev = query.device
+    J, Q = query.shape
+    T = target.shape[1]
+    _check_jobs(query, target, qlen=qlen, tlen=tlen, w=w, h0=h0,
+                end_bonus=end_bonus)
+    if not 1 <= Q <= MAX_Q or T < 1:
+        raise ValueError(f"extend: Q={Q}, T={T}: needs 1 <= Q <= {MAX_Q} "
+                         "(a group holds at most 32 x 8 columns) and T >= 1")
+    m = torch.as_tensor(mat, device=dev).reshape(-1).to(I32).contiguous()
+    if m.numel() != 25:
+        raise ValueError(f"mat: expected a 5x5 matrix, got {m.numel()} "
+                         "values")
+    build("extend")
+    ql, tl, h = (a.to(I32).contiguous() for a in (qlen, tlen, h0))
+    wc, keys = job_keys_core(ql, tl, w, end_bonus, Q, T, mat_max=mat_max,
+                             o_del=o_del, e_del=e_del, o_ins=o_ins,
+                             e_ins=e_ins)
+    skeys, order = job_order(keys)
+    start = torch.empty(len(SIZE_CLASSES) + 2, dtype=I32, device=dev)
+    out = torch.empty((6, J), dtype=I32, device=dev)
+    qc, tc = as_code_pair(query, target)
+    ins = (qc, tc, ql, tl, wc, h, skeys, order, start, m, out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _fns["extend"](*(a.data_ptr() for a in ins), J, Q, T,
+                            qc.stride(0), tc.stride(0), qc.element_size(),
+                            o_del, e_del, o_ins, e_ins, zdrop, stream)
+    if rc != 0:
+        raise RuntimeError(f"extend kernel launch failed: CUDA error {rc}")
+    return ExtendBatchResult(*out.unbind(0))
 
 
 def _launch(name, query, qlen, target, tlen, mat, w, h0, end_bonus, *,
@@ -60,17 +202,9 @@ def _launch(name, query, qlen, target, tlen, mat, w, h0, end_bonus, *,
     dev = query.device
     J, Q = query.shape
     T = target.shape[1]
-    if target.shape[0] != J:
-        raise ValueError(f"target rows {target.shape[0]} != jobs {J}")
-    for vname, v in (("qlen", qlen), ("tlen", tlen), ("w", w), ("h0", h0),
-                     ("end_bonus", end_bonus)):
-        if v.shape != (J,) or v.device != dev:
-            raise ValueError(f"{vname}: expected shape ({J},) on {dev}, got "
-                             f"{tuple(v.shape)} on {v.device}")
-    if target.device != dev:
-        raise ValueError(f"target on {target.device}, query on {dev}")
+    _check_jobs(query, target, qlen=qlen, tlen=tlen, w=w, h0=h0,
+                end_bonus=end_bonus)
     build(name)
-    I32 = torch.int32
     wc = clamp_band_batch(w.to(I32), qlen.to(I32), mat_max, o_del, e_del,
                           o_ins, e_ins, end_bonus.to(I32))
     ins = [a.to(I32).contiguous() for a in (query, target, qlen, tlen, wc,
@@ -102,8 +236,7 @@ def extend_core(query: torch.Tensor, qlen: torch.Tensor,
                             end_bonus, **kw)
     if query.device.type != "cuda":
         raise ValueError(f"no extension kernel for device {query.device}")
-    res = _launch("extend", query, qlen, target, tlen, mat, w, h0,
-                  end_bonus, **kw)
+    res = _launch_k1(query, qlen, target, tlen, mat, w, h0, end_bonus, **kw)
     cuda_build.count_launch(extend_core)
     return res
 

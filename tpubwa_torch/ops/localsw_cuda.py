@@ -3,6 +3,11 @@
 Replaces the XLA scan ``tpubwa.ops.localsw.localsw_batch``.  The source
 is built by ``ops.cuda_build`` at first use and loaded with ctypes.
 
+The kernel gives a warp to a job and walks the rows as a wavefront with
+the DP state in registers; it reads the codes as they are given
+(``as_codes``: uint8 or int32, rows at their own stride) and holds at most
+8 query columns a lane, so Q <= ``MAX_Q``.
+
 ``localsw_core`` has ``ops.localsw.localsw_batch``'s contract.  For
 tensors on the CPU it runs that plain version; for CUDA tensors it
 launches the kernel or raises.  ``localsw_core.launches`` counts kernel
@@ -15,7 +20,13 @@ import ctypes
 import torch
 
 from tpubwa_torch.ops import cuda_build
+from tpubwa_torch.ops.extend_cuda import as_code_pair
 from tpubwa_torch.ops.localsw import LocalSWResult, localsw_batch
+
+MAX_Q = 256     # a lane holds ceil(qlen / 32) <= 8 columns
+# a block keeps 4 x T row maxima (ints) and 4 x T target bytes in its
+# 227 KB of shared memory
+MAX_T = 13000
 
 _fn = None
 
@@ -30,7 +41,7 @@ def build() -> str:
         lib, report = cuda_build.build("localsw")
         fn = lib.tpubwa_localsw_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         _fn = fn
         return report
@@ -49,21 +60,26 @@ def _launch(query, qlen, target, tlen, mat, minsc, endsc, *, o_del, e_del,
         if v.shape != (J,) or v.device != dev:
             raise ValueError(f"{name}: expected shape ({J},) on {dev}, got "
                              f"{tuple(v.shape)} on {v.device}")
-    build()
+    if not (1 <= Q <= MAX_Q and 1 <= T <= MAX_T):
+        raise ValueError(f"local SW: Q={Q}, T={T}: needs 1 <= Q <= {MAX_Q} "
+                         "(a lane holds at most 8 columns) and 1 <= T <= "
+                         f"{MAX_T} (row maxima and the target wait in shared "
+                         "memory)")
     I32 = torch.int32
-    ins = [a.to(I32).contiguous() for a in (query, target, qlen, tlen,
-                                            minsc, endsc)]
     m = torch.as_tensor(mat, device=dev).reshape(-1).to(I32).contiguous()
     if m.numel() != 25:
         raise ValueError(f"mat: expected a 5x5 matrix, got {m.numel()} "
                          "values")
-    rowmax = torch.empty((T, J), dtype=I32, device=dev)
+    build()
+    qc, tc = as_code_pair(query, target)
+    ins = [qc, tc] + [a.to(I32).contiguous()
+                      for a in (qlen, tlen, minsc, endsc)]
     out = torch.empty((4, J), dtype=I32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _fn(*(a.data_ptr() for a in ins), m.data_ptr(),
-                 rowmax.data_ptr(), out.data_ptr(), J, Q, T, o_del, e_del,
-                 o_ins, e_ins, stream)
+        rc = _fn(*(a.data_ptr() for a in ins), m.data_ptr(), out.data_ptr(),
+                 J, Q, T, qc.stride(0), tc.stride(0), qc.element_size(),
+                 o_del, e_del, o_ins, e_ins, stream)
     if rc != 0:
         raise RuntimeError(f"local SW kernel launch failed: CUDA error {rc}")
     return LocalSWResult(*out.unbind(0))

@@ -178,6 +178,95 @@ def ga_lanes(seed: int, n: int, Q: int = 192, T: int = 256, w0: int = 100):
     return qD, tD, qlen, tlen, w
 
 
+def extend_edge_jobs(seed: int, Q: int = 192, T: int = 768):
+    """(query [J, Q], qlen, target [J, T], tlen, w, h0, bonus), int32:
+    extension jobs at the edges of ``ops.extend._extend_core``'s contract,
+    to hold a kernel to the plain version.  Every combination of qlen in
+    {0, 1, 31, 32, 33, 64, 65, 128, 129, Q}, tlen in {0, 1, qlen + 9, T} and
+    w in {0, 1, 7, 100, 4 * Q} (the last >= qlen), each with one of six
+    contents by turn: the query is the target's head; a mutated head with
+    an indel; a matching head then noise (a z-drop or a zero row ends it);
+    an all-N query; an all-N target; one base repeated on both sides (ties
+    for the row maximum's column and for gscore).  h0 cycles through 1, 5,
+    60 and 200.  J = 1201 is a multiple of no group or block size, and the
+    jobs come in no order of size."""
+    rng = np.random.default_rng(seed)
+    qlens = sorted({0, 1, 31, 32, 33, 64, 65, 128, 129, Q} & set(range(Q + 1)))
+    specs = [(ql, tl, w) for ql in qlens
+             for tl in (0, 1, min(ql + 9, T), T) for w in (0, 1, 7, 100, 4 * Q)]
+    specs = [specs[i] for i in rng.permutation(len(specs))]
+    J = 1201
+    query = rng.integers(0, 4, (J, Q)).astype(np.int32)
+    target = rng.integers(0, 4, (J, T)).astype(np.int32)
+    qlen, tlen, w = (np.zeros(J, np.int32) for _ in range(3))
+    for r in range(J):
+        qlen[r], tlen[r], w[r] = specs[r % len(specs)]
+        n = min(Q, T)
+        kind = (r // len(specs) + r) % 6
+        if kind <= 2:
+            query[r, :n] = target[r, :n]
+        if kind == 1:
+            mut = rng.random(Q) < 0.08
+            query[r, mut] = rng.integers(0, 4, int(mut.sum()))
+            p = int(rng.integers(0, max(Q - 8, 1)))
+            query[r, p:Q - 3] = query[r, p + 3:].copy()
+        elif kind == 2:
+            cut = int(rng.integers(1, max(qlen[r], 2)))
+            query[r, cut:] = rng.integers(0, 4, Q - cut)
+        elif kind == 3:
+            query[r] = 4
+        elif kind == 4:
+            target[r] = 4
+        elif kind == 5:
+            query[r] = target[r] = r % 4
+    h0 = np.array([1, 5, 60, 200], np.int32)[np.arange(J) % 4]
+    return query, qlen, target, tlen, w, h0, np.full(J, 5, np.int32)
+
+
+def localsw_edge_jobs(seed: int, Q: int = 192, T: int = 1024):
+    """(query [J, Q], qlen, target [J, T], tlen, minsc, endsc), int32:
+    local-SW jobs at the edges of ``ops.localsw.localsw_batch``'s contract.
+    Every combination of qlen in {0, 1, 31, 32, 33, 150, Q}, tlen in {0, 1,
+    T // 2 + 1, T} and (minsc, endsc) in {(0, never), (19, never), (19, 1:
+    reached on row 0 wherever a base matches), (19, 30), (10 ** 6, never)},
+    each with one of six contents by turn: a mutated copy of the query in
+    the window; two exact copies far apart (a tie for te, the first wins,
+    and a score2); noise; an all-N query; an all-N target; one base
+    repeated on both sides (ties for qe).  J = 1123."""
+    rng = np.random.default_rng(seed)
+    never = 1 << 30
+    qlens = sorted({0, 1, 31, 32, 33, min(150, Q), Q})
+    specs = [(ql, tl, ms, es) for ql in qlens
+             for tl in (0, 1, T // 2 + 1, T)
+             for ms, es in ((0, never), (19, never), (19, 1), (19, 30),
+                            (10 ** 6, never))]
+    specs = [specs[i] for i in rng.permutation(len(specs))]
+    J = 1123
+    query = rng.integers(0, 4, (J, Q)).astype(np.int32)
+    target = rng.integers(0, 4, (J, T)).astype(np.int32)
+    qlen, tlen, minsc, endsc = (np.zeros(J, np.int32) for _ in range(4))
+    for r in range(J):
+        ql, tl, minsc[r], endsc[r] = specs[r % len(specs)]
+        qlen[r], tlen[r] = ql, tl
+        kind = (r // len(specs) + r) % 6
+        if kind == 0 and tl > ql > 0:
+            off = int(rng.integers(0, tl - ql))
+            piece = query[r, :ql].copy()
+            mut = rng.random(ql) < 0.05
+            piece[mut] = rng.integers(0, 4, int(mut.sum()))
+            target[r, off:off + ql] = piece
+        elif kind == 1 and tl >= 4 * ql > 0:
+            target[r, :ql] = query[r, :ql]
+            target[r, tl - ql:tl] = query[r, :ql]
+        elif kind == 3:
+            query[r] = 4
+        elif kind == 4:
+            target[r] = 4
+        elif kind == 5:
+            query[r] = target[r] = r % 4
+    return query, qlen, target, tlen, minsc, endsc
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="simulate reads from a FASTA")
     ap.add_argument("ref")

@@ -23,10 +23,19 @@ Phases (any failure exits non-zero):
    phase 4's and of phase 5's fixture, narrow and forced wide: rounds 1
    and 3, round 2 on the candidates round 1 gives, and all three at caps
    small enough to overflow, whole buffers (k, l, s, start, end, n,
-   overflow); K3 (global_align.cu) on 8192 synthetic lanes (long gaps,
-   nseg > GA_K, one-base target and query, band at cap and floor): the
-   pack of _ga_rows and the executor's step rows.  CUDA-event times of
-   kernel and plain; each kernel's bound from the work these inputs need.
+   overflow), with the steps a lane takes (mean, p99, max) and the time
+   of one step on the longest chain (kernel ms / max steps, the floor of
+   a launch) per round; K3 (global_align.cu) on 8192 synthetic lanes
+   (long gaps, nseg > GA_K, one-base target and query, band at cap and
+   floor): the pack of _ga_rows and the executor's step rows; K2 and K3
+   also on the adversarial sets of tpubwa_torch.utils.sim (K2: reads of
+   one high-copy repeat, N at the ends and in runs, empty and too short
+   reads, a cap of 1, one long chain among short ones in a warp, a batch
+   that is a multiple of no block size, narrow and wide; K3: w = -1, 0 and
+   >= Q + T, the corner outside the band, qlen and tlen 0 and 1, nseg >
+   GA_K, long leading and trailing deletions, at 192x256, 64x128 and
+   320x512, M = 1103 and M = 1).  CUDA-event times of kernel and plain;
+   each kernel's bound from the work these inputs need.
 3. The golden fixture (the recipe of tests/test_golden_sam.py, made here
    with the port's own index builder and simulator) through the port on
    the card must equal tests/golden/se.sam, and its pairs
@@ -38,16 +47,21 @@ Phases (any failure exits non-zero):
    this run show the main path went through K2, K1 and K3; the core
    inputs of its first left and right wave, each with its retry launch
    (mostly dead lanes), are captured and K1 and K1b are held to the plain
-   version on them, and K3 on the lanes of its first _ga_rows call
-   (the batch's non-exact lanes).  A warm pass gives reads/s and the
+   version on them, and K3 on the lanes of every _ga_rows call of the
+   run (the non-exact lanes of each band-doubling round), one line a call:
+   round, lanes, band cells, widest band, kernel ms.  A warm pass gives reads/s and the
    phase table; a profiled pass (torch.profiler) the number of device
-   kernels and the device-busy share.
+   kernels and the device-busy share.  Beside K2's times: the card's rate
+   for independent gathers from this index's checkpoint table, and the
+   time of one dependent gather (tpubwa_torch.utils.gather_latency: one
+   warp alone, with shuffles on the chain, and 2,048 warps at once).
 5. PE: bench.py's chr21-style repeat genome (4.6 Mb, seed 42), 10,000
    pairs of 150 bp at 1% error (seed 7, insert 400 +- 50), batch 8192.
    The counted run (layout t) must launch K2, K1, K4 and K3, give one
    primary per end and a SAM body whose SHA-256 equals the JAX package's
    (pinned below); its first mate-rescue round is captured and K4 is held
-   to the plain version on it, and K3 on its first _ga_rows call.  Then
+   to the plain version on it, and K3 on every _ga_rows call (one line a
+   call, as in phase 4).  Then
    a warm pass under each layout, the b pass counted again for K1b:
    reads/s and the phase table; then a profiled pass (layout t): device
    time by kernel and the totals of the port's own kernels.
@@ -671,7 +685,7 @@ def phase_k2(fixtures: dict) -> dict:
                             check(ovf[r] > 0 or name != "pe",
                                   f"{tag} {r} cap {c} overflows")
                     ms[r] = _cuda_ms(lambda: core(*args, **kw, cap=full),
-                                     reps=5)
+                                     reps=20)
                 n_steps = {r: int(v.sum()) for r, v in steps.items()}
                 print(f"[k2] {tag}: B={B} L={q.shape[1]}, {total} round-2 "
                       f"candidates ({min(total, G)} in wave 0 of G={G}): "
@@ -682,6 +696,18 @@ def phase_k2(fixtures: dict) -> dict:
                       + " ms, plain "
                       + " ".join(f"{r} {plain_ms[r]:.1f}" for r in ms)
                       + f" ms; extension steps {n_steps}")
+                # a launch ends with its longest lane: ms / max steps is
+                # the time of one step on that chain, and their product
+                # the floor of the launch
+                for r, v in steps.items():
+                    d = v.double()
+                    mx = int(v.max())
+                    print(f"[k2] {tag} {r}: steps a lane: mean "
+                          f"{float(d.mean()):.1f}, p99 "
+                          f"{float(torch.quantile(d, 0.99)):.0f}, max {mx}; "
+                          f"{ms[r]:.3f} ms / {mx} steps = "
+                          f"{1e3 * ms[r] / max(mx, 1):.3f} us a step on the "
+                          "longest chain")
                 if name == "se" and not wide:
                     # each step reads two checkpoint rows; what the table
                     # holds is read at most once, the rest is reuse
@@ -718,6 +744,15 @@ def gather_rate(idx) -> None:
     print(f"[gather] {n} random rows of {cp.shape[1] * cp.element_size()} "
           f"bytes from a {_nbytes(cp)}-byte table (independent, torch "
           f"index): {ms:.3f} ms = {n / ms / 1e6:.2f} G rows/s")
+    # the other end: one DEPENDENT gather after another, the floor under
+    # a step of K2's chains (a probe kernel, no part of the aligner)
+    from tpubwa_torch.utils.gather_latency import measure
+
+    for r in measure(cp):
+        print(f"[gather] dependent loads over {r['rows']} rows "
+              f"({r['table_bytes']} bytes), {r['what']}: "
+              f"{r['us_per_step']:.3f} us = {r['cycles_per_step']:.0f} "
+              "cycles a step")
 
 
 def _ga_cells(qlen, tlen, w) -> int:
@@ -826,6 +861,130 @@ def phase_k3() -> dict:
 
 
 
+def ga_calls(tag: str, calls: list) -> dict:
+    """Every _ga_rows call of a counted run against the plain version, one
+    line a call: which batch (calls on one window buffer) and which
+    band-doubling round of it, lanes, band cells, widest band, kernel ms.
+    Returns the first call's entry (the first batch's non-exact lanes)."""
+    first = None
+    batch, rnd, last = 0, 0, (None, 0)
+    for args, kw, buf in calls:
+        # a later round of a batch runs on the same window buffer and on a
+        # subset of the lanes
+        m = args[2].shape[0]
+        batch, rnd = ((batch, rnd + 1) if buf == last[0] and m <= last[1]
+                      else (batch + 1, 1))
+        last = (buf, m)
+        w = args[5]
+        r = compare_ga(f"{tag} batch {batch} round {rnd}: widest band "
+                       f"w={int(w.max())} (mean {float(w.float().mean()):.1f})",
+                       args, kw)
+        first = first or r
+        first["max_abs_err"] = max(first["max_abs_err"], r["max_abs_err"])
+    return first
+
+
+def phase_k2_edge() -> dict:
+    """K2 on the adversarial reads of utils.sim, narrow and wide, at caps
+    64 and 1: whole buffers equal to the plain chains'."""
+    import torch
+
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.io.fasta import Contig
+    from tpubwa_torch.ops import smem_chain as plain
+    from tpubwa_torch.ops import smem_chain_cuda as k2
+    from tpubwa_torch.ops.fm import DeviceIndex
+    from tpubwa_torch.utils import sim
+
+    dev = torch.device("cuda")
+    codes = sim.smem_edge_reference(5)
+    idx = FMIndex.build([Contig("c1", len(codes), 0)], codes)
+    qh, lh = sim.smem_edge_reads(6, codes)
+    q, lens = torch.as_tensor(qh, device=dev), torch.as_tensor(lh, device=dev)
+    rd, mid, thr, act = (torch.as_tensor(a, device=dev)
+                         for a in sim.smem_edge_round2(7, lh))
+    err = 0
+    with keep_launches():
+        for wide in (False, True):
+            di = DeviceIndex.from_host(idx, dev, wide=wide)
+            lanes = (rd, mid, thr.to(di.L2.dtype), act)
+            for cap in (64, 1):
+                steps = torch.zeros(q.shape[0], dtype=torch.int32, device=dev)
+                for r, core, ref, args, kw in (
+                        ("r1", k2.smem_round1_core, plain.smem_round1_chain,
+                         (di, q, lens), {}),
+                        ("r2", k2.smem_through_core, plain.smem_through_chain,
+                         (di, q, lens, *lanes), {}),
+                        ("r3", k2.smem_round3_core, plain.smem_round3_chain,
+                         (di, q, lens), dict(max_mem_intv=20)),
+                        ("r3 max_mem_intv 3", k2.smem_round3_core,
+                         plain.smem_round3_chain, (di, q, lens),
+                         dict(max_mem_intv=3))):
+                    got = core(*args, min_seed_len=19, cap=cap, **kw,
+                               **(dict(steps_out=steps) if r == "r1" else {}))
+                    want = ref(*args, min_seed_len=19, cap=cap, **kw)
+                    tag = (f"edge reads {'wide' if wide else 'narrow'} {r} "
+                           f"cap {cap}")
+                    err = max(err, _same_smems(tag, got, want))
+                    check(bool(got.overflow.any()) == (cap == 1),
+                          f"{tag}: lanes overflow at cap 1 only")
+            st = steps.cpu().numpy()
+            short = np.isin(np.arange(st.size) % 8, (1, 2, 3))
+            check(st[0::8].min() >= 10 * np.median(st[short]),
+                  "the long chain of a group of four lanes takes ten times "
+                  "the steps of the short ones")
+    print(f"[k2] edge reads: B={q.shape[0]} G={rd.shape[0]} L={q.shape[1]}, "
+          "rounds 1, 2, 3 == plain on whole buffers, narrow and wide, caps "
+          f"64 and 1; round-1 steps a lane: long reads >= {st[0::8].min()}, "
+          f"short reads median {int(np.median(st[short]))}")
+    return dict(max_abs_err=err)
+
+
+def phase_k3_edge() -> dict:
+    """K3 on the adversarial lanes of utils.sim at the three window shapes
+    (the second launch takes lanes at 192x256 and 320x512, none at
+    64x128): the pack, the step rows, and one lane alone."""
+    import torch
+
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.ops.global_align import global_align_cigar_batch
+    from tpubwa_torch.ops.global_align_cuda import global_align_cigar_core
+    from tpubwa_torch.utils.sim import ga_edge_lanes
+
+    opt = MemOptions()
+    mat = opt.score_matrix()
+    dev = torch.device("cuda")
+    err = 0
+    for Q, T in ((192, 256), (64, 128), (320, 512)):
+        for gi, gaps in enumerate((
+                dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+                     e_ins=opt.e_ins),
+                dict(o_del=4, e_del=2, o_ins=7, e_ins=1))):
+            qD, tD, rows, qlen, tlen, w = ga_edge_lanes(1 + gi, Q, T)
+            d = tuple(torch.as_tensor(a, device=dev)
+                      for a in (qD, tD, rows, qlen, tlen, w, mat))
+            r = compare_ga(f"edge lanes, gaps {gaps['o_del']}+"
+                           f"{gaps['e_del']} / {gaps['o_ins']}+"
+                           f"{gaps['e_ins']}", d, gaps)
+            one = d[:2] + tuple(a[17:18] for a in d[2:6]) + d[6:]
+            r1 = compare_ga("edge lanes, one lane", one, gaps)
+            err = max(err, r["max_abs_err"], r1["max_abs_err"])
+            args = [torch.as_tensor(a, device=dev) for a in (
+                qD[rows].astype(np.int32), qlen, tD[rows].astype(np.int32),
+                tlen, mat, w)]
+            with keep_launches():
+                got = global_align_cigar_core(*args, **gaps)
+                want = global_align_cigar_batch(*args, **gaps)
+                torch.cuda.synchronize()
+            check(torch.equal(got.score, want.score)
+                  and torch.equal(got.steps, want.steps),
+                  f"K3 step rows and scores == plain on edge lanes {Q}x{T}")
+    print("[k3] edge lanes: packs, scores and whole step rows == plain at "
+          "192x256, 64x128 and 320x512, two gap sets")
+    return dict(max_abs_err=err)
+
+
+
 # ---------------------------------------------------------------- 3 ----
 
 def _strip_pg(sam: str) -> str:
@@ -879,9 +1038,11 @@ def write_fasta(path: str, codes: np.ndarray) -> None:
     FMIndex.from_fasta(path).save(path)
 
 
-def capture_first(module, attr: str, captured: list):
+def capture_first(module, attr: str, captured: list, limit: int = 1):
     """Context manager: module.attr runs as it is, and the arguments of
-    its first call are kept (tensors cloned) in `captured`."""
+    its first `limit` calls are kept (tensors cloned) in `captured`, each
+    with the address of its first argument as a third entry (calls on one
+    buffer belong together)."""
     import contextlib
 
     import torch
@@ -889,9 +1050,10 @@ def capture_first(module, attr: str, captured: list):
     fn = getattr(module, attr)
 
     def capturing(*args, **kw):
-        if not captured:
+        if len(captured) < limit:
             captured.append((tuple(a.clone() if torch.is_tensor(a) else a
-                                   for a in args), dict(kw)))
+                                   for a in args), dict(kw),
+                             args[0].data_ptr()))
         return fn(*args, **kw)
 
     @contextlib.contextmanager
@@ -981,7 +1143,7 @@ def print_phases(tag: str, timers) -> None:
 
 def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
     """Returns the captured core inputs {"left": (args, kw), "right":
-    (args, kw)} and the first _ga_rows call's of the counted run, its
+    (args, kw)} and every _ga_rows call's of the counted run, its
     launches, and the fixture, aligner and SAM body for phases 7-9."""
     import torch
 
@@ -989,6 +1151,7 @@ def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
     from tpubwa_torch.align.pipeline import Aligner, run_se_pipeline
     from tpubwa_torch.config import MemOptions
     from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.ops import global_align_cuda
     from tpubwa_torch.ops.extend_cuda import extend_core
 
     idx = FMIndex.load(fa)
@@ -1011,7 +1174,7 @@ def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
     aligner.ext_core = capturing_core
     ga_captured: list = []
     out = io.StringIO()
-    with capture_first(flatsam, "_ga_rows", ga_captured):
+    with capture_first(flatsam, "_ga_rows", ga_captured, limit=64):
         _sync(device)
         reset_launches()
         t = time.monotonic()
@@ -1027,7 +1190,8 @@ def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
           "chains)")
     check(launches["global_align"] > 0, "the SE path launched K3 (global "
           "alignment)")
-    check(len(ga_captured) == 1, "first _ga_rows call captured")
+    check(len(ga_captured) == global_align_cuda.ga_pack.launches > 0,
+          "every _ga_rows call of the run captured")
     check(set(captured) == {"left", "left retry", "right", "right retry"},
           "left and right core inputs captured, each with its retry launch")
     gate(out.getvalue())
@@ -1047,7 +1211,7 @@ def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
     profiled_pass("se", lambda: _timed_se(aligner, fq),
                   history=" (the same pass before K2 and K3: 637,745 "
                   "kernels, 1.081 s in 18.74 s = 5.8%)")
-    return dict(captured=captured, ga=ga_captured[0], launches=launches,
+    return dict(captured=captured, ga=ga_captured, launches=launches,
                 fa=fa, fq=fq, idx=idx, aligner=aligner, body=body)
 
 
@@ -1109,6 +1273,7 @@ def phase_pe(pe_files: tuple, device: str = "cuda") -> tuple:
     from tpubwa_torch.align.pipeline import EXT_CORES, Aligner
     from tpubwa_torch.config import MemOptions
     from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.ops import global_align_cuda
 
     fa, fq1, fq2 = pe_files
     idx = FMIndex.load(fa)
@@ -1117,7 +1282,7 @@ def phase_pe(pe_files: tuple, device: str = "cuda") -> tuple:
     ga_captured: list = []
     out = io.StringIO()
     with capture_first(pair, "localsw_core", captured), \
-            capture_first(flatsam, "_ga_rows", ga_captured):
+            capture_first(flatsam, "_ga_rows", ga_captured, limit=64):
         _sync(device)
         reset_launches()
         t = time.monotonic()
@@ -1135,7 +1300,8 @@ def phase_pe(pe_files: tuple, device: str = "cuda") -> tuple:
     check(launches["global_align"] > 0, "the PE path launched K3 (global "
           "alignment)")
     check(len(captured) == 1, "first mate-rescue round captured")
-    check(len(ga_captured) == 1, "first _ga_rows call captured")
+    check(len(ga_captured) == global_align_cuda.ga_pack.launches > 0,
+          "every _ga_rows call of the run captured")
     pe_gate(out.getvalue())
 
     b_launches = {}
@@ -1165,7 +1331,7 @@ def phase_pe(pe_files: tuple, device: str = "cuda") -> tuple:
         profiled_pass("pe", lambda: check(pair.align_pe_fastq(
             aligner, fq1, fq2, io.StringIO()) == 0,
             "profiled PE pass exits 0"), top=12)
-    return launches, b_launches, captured[0], ga_captured[0]
+    return launches, b_launches, captured[0][:2], ga_captured
 
 
 # ---------------------------------------------------------------- 6 ----
@@ -1508,22 +1674,21 @@ def main() -> int:
     pe_files = pe_fixture()
     res["smem_chain"] = [phase_k2({"se": (fa, fq),
                                    "pe": (pe_files[0], pe_files[1])})]
-    res["global_align"] = [phase_k3()]
+    res["smem_chain"].append(phase_k2_edge())
+    res["global_align"] = [phase_k3(), phase_k3_edge()]
     phase_golden()
     se = phase_se(fa, fq)
     gather_rate(se["idx"])
     for side, (a, k) in sorted(se["captured"].items()):
         for kern in ("extend", "extend_b"):
             res[kern].append(compare(kern, f"SE batch 1 {side} core", a, k))
-    ga_real = compare_ga("SE batch 1, first _ga_rows call (the non-exact "
-                         "lanes)", *se["ga"])
+    ga_real = ga_calls("SE", se["ga"])
     res["global_align"].append(ga_real)
     pe_launches, b_launches, (sw_args, sw_kw), pe_ga = phase_pe(pe_files)
     sw_real = compare("localsw", "PE batch 1 first rescue round", sw_args,
                       sw_kw)
     res["localsw"].append(sw_real)
-    res["global_align"].append(compare_ga(
-        "PE batch 1, first _ga_rows call", *pe_ga))
+    res["global_align"].append(ga_calls("PE", pe_ga))
     res["extend_b_variant"] = [phase_ablation()]
     k5 = phase_k5(se["idx"])
     res["sa_sampled"] = [k5]

@@ -437,6 +437,119 @@ def test_global_align_kernel_matches_plain_on_card(cuda, gaps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("cap", [64, 1], ids=["cap64", "cap1-overflows"])
+def test_smem_chain_kernel_matches_plain_on_edge_reads(cuda, cap, wide):
+    """K2's three rounds on ``utils.sim.smem_edge_reads``: reads of one
+    high-copy repeat, N at the ends and in runs, empty and too short
+    reads, one long chain among short ones in a warp, B = 203 and
+    G = 614 (multiples of no group or block size), at a cap of 1, where
+    every emitting lane overflows."""
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.io.fasta import Contig
+    from tpubwa_torch.ops import smem_chain as plain
+    from tpubwa_torch.ops import smem_chain_cuda as k2
+    from tpubwa_torch.ops.fm import DeviceIndex
+    from tpubwa_torch.utils import sim
+
+    codes = sim.smem_edge_reference(5)
+    idx = FMIndex.build([Contig("c1", len(codes), 0)], codes)
+    di = DeviceIndex.from_host(idx, cuda, wide=wide)
+    idt = torch.int64 if wide else torch.int32
+    qh, lh = sim.smem_edge_reads(6, codes)
+    q, lens = torch.as_tensor(qh, device=cuda), torch.as_tensor(lh,
+                                                                device=cuda)
+    rd, mid, thr, act = (torch.as_tensor(a, device=cuda)
+                         for a in sim.smem_edge_round2(7, lh))
+    B, G = q.shape[0], rd.shape[0]
+    assert B % 16 and G % 16
+    calls = [
+        (k2.smem_round1_core, plain.smem_round1_chain, (di, q, lens),
+         dict(min_seed_len=19, cap=cap), B),
+        (k2.smem_through_core, plain.smem_through_chain,
+         (di, q, lens, rd, mid, thr.to(idt), act),
+         dict(min_seed_len=19, cap=cap), G),
+        (k2.smem_round3_core, plain.smem_round3_chain, (di, q, lens),
+         dict(min_seed_len=19, max_mem_intv=20, cap=cap), B),
+        (k2.smem_round3_core, plain.smem_round3_chain, (di, q, lens),
+         dict(min_seed_len=19, max_mem_intv=3, cap=cap), B),
+    ]
+    for core, ref, args, kw, lanes in calls:
+        steps = torch.zeros(lanes, dtype=torch.int32, device=cuda)
+        got = core(*args, **kw, steps_out=steps)
+        torch.cuda.synchronize()
+        _same_smems(got, ref(*args, **kw))
+        assert int(got.n.sum()) > 10
+        assert bool(got.overflow.any()) == (cap == 1)
+        if lanes == B:
+            # the long chain of a group of four lanes takes ten times the
+            # steps of the short reads beside it
+            st = steps.cpu().numpy()
+            short = np.isin(np.arange(B) % 8, (1, 2, 3))
+            assert st[0::8].min() >= 10 * np.median(st[short])
+            assert st[lh == 0].max() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(192, 256), (64, 128), (320, 512)],
+                         ids=["192x256", "64x128", "320x512"])
+@pytest.mark.parametrize("gaps", [dict(o_del=6, e_del=1, o_ins=6, e_ins=1),
+                                  dict(o_del=4, e_del=2, o_ins=7, e_ins=1)],
+                         ids=["default", "skewed"])
+def test_global_align_kernel_matches_plain_on_edge_lanes(cuda, gaps, shape):
+    """K3's two outputs on ``utils.sim.ga_edge_lanes``: w = -1, 0 and
+    >= Q + T, the corner outside the band, qlen and tlen 0 and 1,
+    nseg > GA_K, long leading and trailing deletions, M = 1103 (a
+    multiple of no warp or block size) and M = 1; at 192x256 and 320x512
+    the second launch takes the wide lanes, at 64x128 there is none."""
+    from tpubwa_torch.align.flatsam import GA_K, _ga_rows, _ga_rows_plain
+    from tpubwa_torch.ops import global_align_cuda as k3
+    from tpubwa_torch.ops.global_align import global_align_cigar_batch
+    from tpubwa_torch.utils.sim import ga_edge_lanes
+
+    Q, T = shape
+    qD, tD, rows, qlen, tlen, w = ga_edge_lanes(1, Q, T)
+    mat = OPT.score_matrix()
+    dev = [torch.as_tensor(a, device=cuda)
+           for a in (qD, tD, rows, qlen, tlen, w, mat)]
+    for sel in (slice(None), slice(17, 18)):
+        args = dev[:2] + [a[sel] for a in dev[2:6]] + dev[6:]
+        got = _ga_rows(*args, **gaps)
+        torch.cuda.synchronize()
+        want = _ga_rows_plain(*args, **gaps, ga_k=GA_K)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.cpu(), want.cpu())
+    assert int((want[:, 1] > GA_K).sum()) >= 0
+    sub = rows
+    args = [torch.as_tensor(a, device=cuda) for a in (
+        qD[sub].astype(np.int32), qlen, tD[sub].astype(np.int32), tlen, mat,
+        w)]
+    got = k3.global_align_cigar_core(*args, **gaps)
+    torch.cuda.synchronize()
+    want = global_align_cigar_batch(*args, **gaps)
+    assert torch.equal(got.score.cpu(), want.score.cpu())
+    assert torch.equal(got.steps.cpu(), want.steps.cpu())
+
+
+@pytest.mark.cuda
+def test_global_align_kernel_refuses_what_it_cannot_take(cuda):
+    """A query wider than 320 columns or a pack of more than 64 segments
+    raises; nothing falls back to the plain version."""
+    from tpubwa_torch.ops import global_align_cuda as k3
+
+    z = torch.zeros((2, 384), dtype=torch.int8, device=cuda)
+    one = torch.ones(2, dtype=torch.int32, device=cuda)
+    rows = torch.arange(2, device=cuda)
+    kw = dict(o_del=6, e_del=1, o_ins=6, e_ins=1)
+    with pytest.raises(ValueError, match="Q=384"):
+        k3.ga_pack(z, z, rows, one, one, one, OPT.score_matrix(), **kw,
+                   ga_k=24)
+    with pytest.raises(ValueError, match="ga_k"):
+        k3.ga_pack(z[:, :64], z, rows, one, one, one, OPT.score_matrix(),
+                   **kw, ga_k=65)
+
+
+@pytest.mark.cuda
 def test_threads_se_matches_single_on_card(cuda, tmp_path):
     import io
 

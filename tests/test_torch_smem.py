@@ -208,3 +208,69 @@ def test_chain_rounds_match_jax(rnd, wide, cap):
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
     assert int(got.n.sum()) > 20
     assert bool(got.overflow.any()) == (cap == 1)
+
+
+@pytest.fixture(scope="module")
+def edge():
+    """``utils.sim``'s adversarial reads and round-2 lanes with their
+    index (the set the card tests and chip_smoke.py hold K2 to)."""
+    from tpubwa_torch.utils import sim
+
+    codes = sim.smem_edge_reference(5)
+    idx = FMIndex.build([Contig("c1", len(codes), 0)], codes)
+    q, lens = sim.smem_edge_reads(6, codes)
+    return idx, q, lens, sim.smem_edge_round2(7, lens)
+
+
+@pytest.mark.parametrize("cap", [64, 1], ids=["cap64", "cap1-overflows"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("rnd", ["round1", "round2", "round3"])
+def test_chain_rounds_match_jax_on_edge_reads(edge, rnd, wide, cap):
+    """The plain chains on reads of one high-copy repeat, N at the ends
+    and in runs, empty and too short reads, one long chain among short
+    ones, B = 203 and G = 614, a cap of 1: whole buffers equal the JAX
+    loops', narrow and wide."""
+    import jax
+
+    from tpubwa.ops import smem_chain as jsc
+    from tpubwa.ops.fm import DeviceIndex as JaxDI
+    from tpubwa_torch.ops import smem_chain as tsc
+    from tpubwa_torch.ops import smem_chain_cuda as k2
+    from tpubwa_torch.ops.fm import DeviceIndex
+
+    idx, q, lens, (rd, mid, thr, act) = edge
+    assert q.shape[0] % 16 and rd.shape[0] % 16
+    assert (lens == 0).any() and ((lens > 0) & (lens < 19)).any()
+    idt = np.int64 if wide else np.int32
+    thr = thr.astype(idt)
+    names = dict(round1="smem_round1_chain", round2="smem_through_chain",
+                 round3="smem_round3_chain")
+    cores = dict(round1=k2.smem_round1_core, round2=k2.smem_through_core,
+                 round3=k2.smem_round3_core)
+    extra = (rd, mid, thr, act) if rnd == "round2" else ()
+    kw = dict(min_seed_len=OPT.min_seed_len, cap=cap)
+    if rnd == "round3":
+        kw["max_mem_intv"] = OPT.max_mem_intv
+    jax.config.update("jax_enable_x64", wide)
+    try:
+        jdi = JaxDI.from_host(idx, wide=wide)
+        want = getattr(jsc, names[rnd])(
+            jdi, jnp.asarray(q), jnp.asarray(lens),
+            *(jnp.asarray(a) for a in extra), **kw)
+        want = [np.asarray(f) for f in want]
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    tdi = DeviceIndex.from_host(idx, "cpu", wide=wide)
+    targs = (tdi, torch.as_tensor(q), torch.as_tensor(lens),
+             *(torch.as_tensor(a) for a in extra))
+    got = getattr(tsc, names[rnd])(*targs, **kw)
+    for name, g, w in zip(got._fields, got, want):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    assert int(got.n.sum()) > 10
+    assert bool(got.overflow.any()) == (cap == 1)
+    # the wrapper takes the plain version for CPU tensors, launches nothing
+    n0 = cores[rnd].launches
+    again = cores[rnd](*targs, **kw)
+    assert cores[rnd].launches == n0
+    for g, w in zip(again, want):
+        np.testing.assert_array_equal(g.numpy(), w)

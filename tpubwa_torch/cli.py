@@ -70,9 +70,15 @@ def cmd_mem(args) -> int:
         batch_reads=args.batch, preset=args.preset, chunk_dir=args.chunks,
         sa_sample_shift=args.sa_shift, cmdline=" ".join(sys.argv),
         shard=shard, ext_layout=args.ext_layout)
-    if args.profile:
-        return _profiled(args.profile, args.device, kw)
-    return align_fastq(**kw)
+    # a malformed input or option is one line and exit code 1; a refused
+    # manifest, a missing GPU or a failed build (RuntimeError) stays loud
+    try:
+        if args.profile:
+            return _profiled(args.profile, args.device, kw)
+        return align_fastq(**kw)
+    except ValueError as e:
+        print(f"tpu-bwa-torch mem: {e}", file=sys.stderr)
+        return 1
 
 
 def _profiled(trace_dir: str, device: str, kw: dict) -> int:

@@ -6,6 +6,13 @@ Replaces the XLA scans ``tpubwa.ops.global_align.global_align_batch`` /
 ``tpubwa.align.flatsam._ga_rows``.  The source is built by
 ``ops.cuda_build`` at first use and loaded with ctypes.
 
+A call is two kernel launches over one counter of lanes: four-warp blocks
+whose warps each hold the direction bits of a narrow band in shared
+memory take most lanes, and hand the rest (bands wider than 128 cells, or
+more bits than their store) to one-warp blocks with the store of a full
+matrix; ``launch_plan`` sizes both from the window widths.  There is no
+scratch in device memory beyond the counters and that list of lanes.
+
 ``global_align_cigar_core`` has ``ops.global_align
 .global_align_cigar_batch``'s contract: for tensors on the CPU it runs
 that plain version; for CUDA tensors it launches the kernel or raises.
@@ -25,9 +32,17 @@ from tpubwa_torch.ops.global_align import (GlobalCigarResult,
                                            global_align_cigar_batch)
 
 I32 = torch.int32
-# persistent one-warp blocks per SM: bounds the direction-byte scratch
-# (blocks * T * Q bytes) whatever the batch
-BLOCKS_PER_SM = 16
+# What the kernel's source fixes and the wrapper sizes its launches by.
+MAX_Q = 320             # 32 threads x 10 cells a row
+NARROW_WARPS = 4        # warps a block of the first launch
+NARROW_BW = 128         # widest band (stored cells a row) it takes
+# direction bytes a warp of the first launch has: with the codes of a
+# Q=192, T=256 call a block takes 31.6 KB of shared memory, 7 blocks an SM
+NARROW_STORE = 7168
+MAX_PACK = 64           # largest ga_k
+CODES_EXTRA = MAX_PACK * 4   # a warp's reversed segments
+SMEM_PER_SM = 227 * 1024     # shared memory the blocks of an SM share
+MAX_WARPS_PER_SM = 64
 _fn = None
 
 
@@ -41,20 +56,48 @@ def build() -> str:
         lib, report = cuda_build.build("global_align")
         fn = lib.tpubwa_global_align_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 14
                        + [ctypes.c_void_p])
         _fn = fn
         return report
 
 
+def launch_plan(M: int, Q: int, T: int, sms: int) -> dict:
+    """How a call of M lanes at padded widths Q, T is laid on a card of
+    `sms` SMs: ``store`` direction bytes for each warp of the first
+    launch (four warps a block, lanes from a counter), ``blocks_narrow``
+    of its blocks, and ``blocks_wide`` one-warp blocks of the second
+    launch, each with the store of a full matrix (0: no second launch,
+    because a warp of the first holds any lane of this call)."""
+    codes = ((Q + T + 3) & ~3) + CODES_EXTRA
+    full = (T * ((Q + 1) // 2) + 3) & ~3
+    one = full <= NARROW_STORE and Q <= NARROW_BW
+    store = full if one else NARROW_STORE
+    narrow_bytes = 128 + NARROW_WARPS * (store + codes)
+    wide_bytes = 128 + full + codes
+    per_sm = max(1, min(SMEM_PER_SM // narrow_bytes,
+                        MAX_WARPS_PER_SM // NARROW_WARPS))
+    wide_per_sm = max(1, min(SMEM_PER_SM // wide_bytes, 16))
+    return dict(
+        store=store,
+        blocks_narrow=max(1, min(-(-M // NARROW_WARPS), per_sm * sms)),
+        blocks_wide=0 if one else max(1, min(M, wide_per_sm * sms)),
+        narrow_bytes=narrow_bytes, wide_bytes=wide_bytes)
+
+
 def _launch(qD, tD, rows, qlen, tlen, w, mat, Q: int, T: int, gaps: dict,
             ga_k: int, want_steps: bool):
-    """One kernel launch over lanes ``rows`` of the int8 window buffers;
-    returns the pack, or (score, steps)."""
+    """One call of the kernel over lanes ``rows`` of the int8 window
+    buffers; returns the pack, or (score, steps)."""
     dev = qD.device
     if dev.type != "cuda":
         raise ValueError(f"no global-alignment kernel for device {dev}")
     M = rows.shape[0]
+    if not 1 <= Q <= MAX_Q or T < 1:
+        raise ValueError(f"window widths Q={Q}, T={T}: the kernel takes "
+                         f"1 <= Q <= {MAX_Q} and T >= 1")
+    if not 0 <= ga_k <= MAX_PACK:
+        raise ValueError(f"ga_k {ga_k}: expected 0..{MAX_PACK}")
     for name, v, width in (("query", qD, Q), ("target", tD, T)):
         if (v.dim() != 2 or v.dtype != torch.int8 or v.shape[1] < width
                 or v.device != dev or v.stride(1) != 1):
@@ -82,9 +125,10 @@ def _launch(qD, tD, rows, qlen, tlen, w, mat, Q: int, T: int, gaps: dict,
     if M == 0:
         return (score, steps) if want_steps else pack
     build()
-    blocks = min(M, BLOCKS_PER_SM
-                 * torch.cuda.get_device_properties(dev).multi_processor_count)
-    zbuf = torch.empty((blocks, T, Q), dtype=torch.uint8, device=dev)
+    plan = launch_plan(
+        M, Q, T, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # the lane counters (zero) and the list of lanes for the second launch
+    scratch = torch.zeros(3 + M, dtype=I32, device=dev)
     ins = [rows.to(torch.int64).contiguous()] + [
         a.to(I32).contiguous() for a in (qlen, tlen, w)]
 
@@ -93,10 +137,11 @@ def _launch(qD, tD, rows, qlen, tlen, w, mat, Q: int, T: int, gaps: dict,
 
     with torch.cuda.device(dev):
         rc = _fn(qD.data_ptr(), tD.data_ptr(), *(a.data_ptr() for a in ins),
-                 m.data_ptr(), zbuf.data_ptr(), ptr(pack), ptr(steps),
-                 ptr(score), M, Q, T, qD.stride(0), tD.stride(0),
-                 gaps["o_del"], gaps["e_del"], gaps["o_ins"], gaps["e_ins"],
-                 ga_k, int(want_steps), blocks,
+                 m.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 12,
+                 ptr(pack), ptr(steps), ptr(score), M, Q, T, qD.stride(0),
+                 tD.stride(0), gaps["o_del"], gaps["e_del"], gaps["o_ins"],
+                 gaps["e_ins"], ga_k, int(want_steps), plan["store"],
+                 plan["blocks_narrow"], plan["blocks_wide"],
                  torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"global-alignment kernel launch failed: CUDA "

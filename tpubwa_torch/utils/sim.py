@@ -267,6 +267,165 @@ def localsw_edge_jobs(seed: int, Q: int = 192, T: int = 1024):
     return query, qlen, target, tlen, minsc, endsc
 
 
+def ga_edge_lanes(seed: int, Q: int = 192, T: int = 256):
+    """(qD int8 [n, Q], tD int8 [n, T], rows int64 [M], qlen, tlen, w; the
+    last three int32 [M], for lanes ``rows``): global-alignment lanes at
+    the edges of ``ops.global_align.global_align_cigar_batch``'s contract,
+    to hold a kernel to the plain version.  Every combination of qlen in
+    {0, 1, 2, 31, 32, 33, 64, 65, 150, Q}, tlen in {0, 1, qlen, qlen + 40,
+    T} and w in {-1, 0, 1, 3, 16, 17, 40, 64, 100, Q + T, 4 * (Q + T)}, so
+    w = 0 with qlen == tlen, a band wider than the matrix, and bands that
+    leave the corner (tlen-1, qlen-1) outside all occur, as do bands of
+    every width class a kernel may tell apart.  Each lane has one of
+    seven contents by turn: the target is the query; a mutated copy with
+    short indels; the query after 40 bases of noise (a long leading
+    deletion); the query before noise (a long trailing deletion); an indel
+    every ~5 bases (more CIGAR segments than a pack of 24 holds); one base
+    repeated on both sides (every tie); N codes in both.  M = 1103 lanes,
+    in no order of size, picked from n = M + 7 buffer rows by a
+    permutation; M is a multiple of no warp or block size."""
+    rng = np.random.default_rng(seed)
+    qlens = sorted({0, 1, 2, 31, 32, 33, 64, 65, min(150, Q), Q}
+                   & set(range(Q + 1)))
+    specs = [(ql, tl, w) for ql in qlens
+             for tl in sorted({0, 1, min(ql, T), min(ql + 40, T), T})
+             for w in (-1, 0, 1, 3, 16, 17, 40, 64, 100, Q + T, 4 * (Q + T))]
+    specs = [specs[i] for i in rng.permutation(len(specs))]
+    M = 1103
+    n = M + 7
+    qD = rng.integers(0, 4, (n, Q)).astype(np.int8)
+    tD = rng.integers(0, 4, (n, T)).astype(np.int8)
+    rows = rng.permutation(n)[:M].astype(np.int64)
+    qlen, tlen, w = (np.zeros(M, np.int32) for _ in range(3))
+    for r in range(M):
+        ql, tl, w[r] = specs[r % len(specs)]
+        qlen[r], tlen[r] = ql, tl
+        q = qD[rows[r], :ql].astype(np.int64)
+        kind = (r // len(specs) + r) % 7
+        if kind == 0:
+            t = q
+        elif kind == 1:
+            t = q.copy()
+            mut = rng.random(ql) < 0.05
+            t[mut] = rng.integers(0, 4, int(mut.sum()))
+            for _ in range(3):
+                p = int(rng.integers(0, len(t) + 1))
+                g = int(rng.integers(1, 6))
+                t = (np.concatenate([t[:p], rng.integers(0, 4, g), t[p:]])
+                     if rng.random() < 0.5
+                     else np.concatenate([t[:p], t[p + g:]]))
+        elif kind == 2:
+            t = np.concatenate([rng.integers(0, 4, 40), q])
+        elif kind == 3:
+            t = np.concatenate([q, rng.integers(0, 4, 40)])
+        elif kind == 4:
+            parts, p = [], 0
+            while p < ql:
+                parts.append(q[p:p + 5])
+                p += 5
+                if rng.random() < 0.5:
+                    parts.append(rng.integers(0, 4, 1))
+                else:
+                    p += 1
+            t = np.concatenate(parts) if parts else q
+        elif kind == 5:
+            qD[rows[r]] = tD[rows[r]] = r % 4
+            continue
+        else:
+            t = q.copy()
+            qD[rows[r], rng.random(Q) < 0.1] = 4
+            t[rng.random(len(t)) < 0.1] = 4
+        m = min(len(t), T)
+        tD[rows[r], :m] = t[:m]
+    return qD, tD, rows, qlen, tlen, w
+
+
+def smem_edge_reference(seed: int, n: int = 24000) -> np.ndarray:
+    """A small genome (uint8 codes) for ``smem_edge_reads``: random
+    sequence with 40 copies of one 200 bp element at ~3 % divergence, so a
+    read of that element has a high-copy interval at every length."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    elem = rng.integers(0, 4, 200).astype(np.uint8)
+    for p in np.linspace(100, n - 400, 40).astype(int):
+        e = elem.copy()
+        m = rng.random(200) < 0.03
+        e[m] = (e[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        codes[p:p + 200] = e
+    return codes
+
+
+def smem_edge_reads(seed: int, codes: np.ndarray, L: int = 160,
+                    min_seed_len: int = 19):
+    """(q int32 [B, L] padded with 4, lens int32 [B]): reads at the edges
+    of the SMEM chains' contract (``ops.smem_chain``), cut from the genome
+    `codes` of ``smem_edge_reference`` with 1 % of the bases changed.  By
+    turn r % 8: 0 a 150 bp read of the high-copy element's neighbourhood,
+    the only long chain of its group of four lanes (1-3 are reads of 8 to
+    13 bases, whose chains take a tenth of its steps); 4 N at both ends and in two runs; 5 an empty read or one
+    shorter than min_seed_len; 6 a read of the element alone (every lane
+    of the warp a long BWD walk); 7 a full-width read of L bases, the last
+    an N.  B = 203, a multiple of no group or block size."""
+    rng = np.random.default_rng(seed)
+    B = 203
+    n = len(codes)
+    starts = np.linspace(100, n - 400, 40).astype(int)
+    q = np.full((B, L), 4, np.int32)
+    lens = np.zeros(B, np.int32)
+    for r in range(B):
+        kind = r % 8
+        s0 = int(starts[rng.integers(0, 40)])
+        if kind == 0:
+            pos, ln = s0 - int(rng.integers(0, 60)), min(150, L)
+        elif kind in (1, 2, 3):
+            pos = int(rng.integers(0, n - L))
+            ln = int(rng.integers(8, 14))
+        elif kind == 5:
+            pos, ln = int(rng.integers(0, n - L)), (0, 5, min_seed_len - 1)[
+                (r // 8) % 3]
+        elif kind == 6:
+            pos, ln = s0 + int(rng.integers(0, 50)), min(150, L)
+        elif kind == 7:
+            pos, ln = int(rng.integers(0, n - L)), L
+        else:
+            pos, ln = int(rng.integers(0, n - L)), min(150, L)
+        read = codes[pos:pos + ln].astype(np.int32)
+        mut = rng.random(ln) < 0.01
+        read[mut] = rng.integers(0, 4, int(mut.sum()))
+        if kind == 4:
+            read[:3] = 4
+            read[-2:] = 4
+            read[40:44] = 4
+            read[90] = 4
+        if kind == 7:
+            read[-1] = 4
+        q[r, :ln] = read
+        lens[r] = ln
+    return q, lens
+
+
+def smem_edge_round2(seed: int, lens: np.ndarray):
+    """(rd, mid int32 [G], thr int64 [G], act bool [G]): round-2 lanes over
+    the reads of ``smem_edge_reads``: read rows in no order and with
+    repeats; mid at 0, at the last base, past the read's end, on N codes
+    and anywhere; thresholds 1, 2, 5 and 1000 (nothing is taken); a fifth
+    of the lanes inactive.  G = 3 * B + 5, a multiple of no group or block
+    size."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    G = 3 * B + 5
+    rd = rng.integers(0, B, G).astype(np.int32)
+    ln = lens[rd]
+    mid = (rng.random(G) * np.maximum(ln, 1)).astype(np.int32)
+    mid[::7] = np.maximum(ln[::7] - 1, 0)
+    mid[1::11] = 0
+    mid[2::13] = ln[2::13]
+    mid[3::17] = 41                     # inside kind 4's N run
+    thr = np.array([1, 2, 5, 1000], np.int64)[rng.integers(0, 4, G)]
+    act = rng.random(G) > 0.2
+    return rd, mid, thr, act
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="simulate reads from a FASTA")
     ap.add_argument("ref")

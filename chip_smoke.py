@@ -10,12 +10,13 @@ Phases (any failure exits non-zero):
 1. Print the card's name and power limit; build the six kernel sources
    (nvcc, sm_90a, one process per source, all started together) and the
    native host library (g++), with build times and ptxas register/spill
-   lines (K2's and K5's for both their int32 and int64 instantiations).
+   lines (K2's and K5's for both their int32 and int64 instantiations);
+   K1b and K5 must report no spills.
 2. Hold each kernel against its plain PyTorch version on the card, exact
    on every field: K1 (extend.cu) and K1b (extend_b.cu) on random jobs at
    J=8192, Q=192, T=768; K4 (localsw.cu) on random rescue jobs at J=4096,
-   Q=192, T=1024 and T=256; K1 and K4 also on the adversarial job sets
-   of tpubwa_torch.utils.sim (edge_sets below), and every comparison of
+   Q=192, T=1024 and T=256; K1, K1b and K4 also on the adversarial job
+   sets of tpubwa_torch.utils.sim (edge_sets below), and every comparison of
    K1, K1b and K4 prints the cells a job visits (mean, p99, max) and the
    hand kernel's own device time inside its wrapper (torch.profiler), and
    K1's prep kernel (band clamp, sort keys) is held to its plain version
@@ -47,7 +48,9 @@ Phases (any failure exits non-zero):
    this run show the main path went through K2, K1 and K3; the core
    inputs of its first left and right wave, each with its retry launch
    (mostly dead lanes), are captured and K1 and K1b are held to the plain
-   version on them, and K3 on the lanes of every _ga_rows call of the
+   version on them (a [k1b] line a wave: K1b beside K1, and how much of
+   a row the clamped band covers), and K3 on the lanes of every _ga_rows
+   call of the
    run (the non-exact lanes of each band-doubling round), one line a call:
    round, lanes, band cells, widest band, kernel ms.  A warm pass gives reads/s and the
    phase table; a profiled pass (torch.profiler) the number of device
@@ -69,13 +72,20 @@ Phases (any failure exits non-zero):
    that script's shapes; only the full variant is held to the plain
    version (the others are wrong by design).
 7. K5 (sa_sampled.cu) on every row of phase 4's index (~9.2 M rows),
-   narrow and forced wide, at shifts 2, 4 and 5: exact against its plain
-   version and equal to the full SA; CUDA-event times of both at shift 5
-   and the mean number of LF steps taken.
+   narrow and forced wide, at shifts 2, 4 and 5, and on the edge rows of
+   utils.sim.sa_edge_rows at shifts 0, 1, 2, 4 and 5: exact against its
+   plain version and equal to the full SA; CUDA-event times of both at
+   shift 5, the kernel also on the card's clock, the LF steps a row
+   (mean, max) and the share of lane-turns a thread-per-row warp keeps
+   busy (from the SA, on the host).
 8. The index modes end to end: (a) phase 4's SE run with
    sa_sample_shift=5 (K5 counted on this run), SAM body identical to
    phase 4's, warm reads/s, device bytes of the full SA against the
-   sampled SA's; (b) the same on the forced wide layout; (c) phase 5's PE
+   sampled SA's; each K5 call of that run captured and held to the plain
+   version, one line a call: rows, live rows, kernel ms (events and the
+   card's clock), plain ms, bound, and the kernel on every row of the
+   buffer (the first design's way);
+   (b) the same on the forced wide layout; (c) phase 5's PE
    fixture on the wide layout with sa_sample_shift=4, one counted pass,
    SAM body SHA-256 equal to the pinned JAX hash.
 9. The serving modes, each body identical to the single-process one:
@@ -283,6 +293,11 @@ def phase_build() -> None:
             if ("Compiling entry" in line or "registers" in line
                     or "spill" in line):
                 print(f"[build]   ptxas: {line.strip()}")
+        if name in ("extend_b", "sa_sampled"):      # redesigned in PR 7
+            spills = [ln for ln in report.splitlines() if "spill" in ln]
+            check(spills and all("0 bytes spill stores, 0 bytes spill loads"
+                                 in ln for ln in spills),
+                  f"{name}: ptxas reports no spills")
     t = time.monotonic()
     load_native()
     print(f"[build] native host library (tpubwa_torch/native/*.cpp, g++) "
@@ -364,10 +379,11 @@ def rescue_jobs(seed: int, J: int, Q: int, T: int) -> tuple:
 
 def edge_sets() -> list:
     """(kernel, name, args, kw) of the adversarial job sets of utils.sim
-    for K1 and K4: qlen 0, 1, 31, 32, 33, Q; tlen 0, 1, T; w 0 and >= qlen;
-    a z-drop that fires; endsc reached on row 0 and never; all-N query and
-    target; ties for mj, te / qe and gscore; J = 1 and J a multiple of no
-    group or block size; mostly dead lanes; scores beyond 16 bits."""
+    for K1, K1b and K4: qlen 0, 1, 31, 32, 33, Q; tlen 0, 1, T; w 0 and >=
+    qlen; a z-drop that fires; endsc reached on row 0 and never; all-N
+    query and target; ties for mj, te / qe and gscore; J = 1 and J a
+    multiple of no group or block size; mostly dead lanes; scores beyond
+    16 bits, and beyond 23 (K1b's two-reduction path)."""
     from tpubwa_torch.config import MemOptions
     from tpubwa_torch.utils.sim import extend_edge_jobs, localsw_edge_jobs
 
@@ -380,8 +396,10 @@ def edge_sets() -> list:
 
     def ext(name, jobs, **over):
         q, ql, t, tl, w, h0, bonus = jobs
-        sets.append(("extend", f"edge jobs, {name}",
-                     (q, ql, t, tl, mat, w, h0, bonus), dict(ekw, **over)))
+        for kern in ("extend", "extend_b"):
+            sets.append((kern, f"edge jobs, {name}",
+                         (q, ql, t, tl, mat, w, h0, bonus),
+                         dict(ekw, **over)))
 
     def sw(name, jobs, m=mat, kw=gaps):
         q, ql, t, tl, minsc, endsc = jobs
@@ -400,6 +418,8 @@ def edge_sets() -> list:
     big = list(full)
     big[5] = big[5] * 5000
     ext("h0 x 5000 (scores beyond 16 bits)", big)
+    big[5] = full[5] * 50000      # K1b's fused (H << 8 | j) key is refused
+    ext("h0 x 50000 (scores beyond 23 bits)", big)
     ext("gaps 4+2 / 7+1, zdrop 20", extend_edge_jobs(4, Q_RAND, T_RAND),
         o_del=4, e_del=2, o_ins=7, e_ins=1, zdrop=20)
 
@@ -579,6 +599,29 @@ def compare(kernel: str, name: str, args: tuple, kw: dict) -> dict:
           f"({100 * b['bound_ms'] / ms:.1f}% of it reached); on the card's "
           f"clock {on_card}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+
+
+def band_share(args: tuple, kw: dict) -> str:
+    """How much of a row the clamped band covers on these jobs: the share
+    of live jobs whose band (2w + 1 columns) holds the whole query, and
+    the mean of min(2w + 1, qlen) / qlen (what band-relative columns would
+    leave of a row)."""
+    import torch
+
+    from tpubwa_torch.ops.extend import clamp_band_batch
+
+    _, qlen, _, tlen, _, w, _, bonus = (torch.as_tensor(x) for x in args)
+    qlen = qlen.clamp(max=args[0].shape[1])
+    wc = clamp_band_batch(w, qlen, kw["mat_max"], kw["o_del"], kw["e_del"],
+                          kw["o_ins"], kw["e_ins"], bonus)
+    live = (qlen > 0) & (tlen > 0)
+    width = (2 * wc.to(torch.int64) + 1)[live]
+    ql = qlen[live].to(torch.int64)
+    if not ql.numel():
+        return "no live job"
+    return (f"2w+1 >= qlen on {100 * float((width >= ql).double().mean()):.1f}"
+            f"% of {ql.numel()} live jobs, band / qlen mean "
+            f"{float((torch.minimum(width, ql) / ql).mean()):.3f}")
 
 
 # ------------------------------------------------------- 2: K2, K3 ----
@@ -1053,7 +1096,8 @@ def capture_first(module, attr: str, captured: list, limit: int = 1):
         if len(captured) < limit:
             captured.append((tuple(a.clone() if torch.is_tensor(a) else a
                                    for a in args), dict(kw),
-                             args[0].data_ptr()))
+                             args[0].data_ptr() if torch.is_tensor(args[0])
+                             else None))
         return fn(*args, **kw)
 
     @contextlib.contextmanager
@@ -1381,14 +1425,48 @@ def phase_ablation() -> dict:
 
 # ---------------------------------------------------------------- 7 ----
 
+def k5_walks(sa, shift: int) -> str:
+    """LF steps a row at 2^shift (mean, max) and the share of a
+    thread-per-row warp's lane-turns that do work: every row's probes
+    (steps + 1) over 32 x the longest walk of each 32 consecutive rows."""
+    import torch
+
+    probes = (sa % (1 << shift)).to(torch.int64) + 1
+    pad = (-probes.numel()) % 32
+    longest = torch.cat([probes, probes.new_zeros(pad)]).view(-1, 32).amax(1)
+    eff = float(probes.sum()) / (32 * float(longest.sum()))
+    return (f"LF steps a row mean {float(probes.double().mean()) - 1:.3f}, "
+            f"max {int(probes.max()) - 1}; a thread a row would keep "
+            f"{100 * eff:.1f}% of its lane-turns busy")
+
+
+def k5_bound(di, ss, rows, got, shift: int, live: int) -> dict:
+    """K5's bound on `live` rows whose results are `got`: the steps these
+    walks take (position mod 2^shift each, plus one probe) x OPS_LF_STEP,
+    and the bytes of the live rows in, every row out, and the table rows
+    the walks touch (each table read at most once)."""
+    import torch
+
+    n_steps = int((got[:live].to(torch.int64) % (1 << shift)).sum())
+    tables = _nbytes(di.cp, ss.blocks, ss.vals)
+    row_b = (di.cp.shape[1] + ss.blocks.shape[1]) * di.cp.element_size()
+    moved = (_nbytes(rows[:live]) + _nbytes(rows)
+             + min(tables, (n_steps + live) * row_b))
+    return dict(steps=n_steps, moved=moved,
+                **bound(moved, (n_steps + live) * OPS_LF_STEP))
+
+
 def phase_k5(idx) -> dict:
     """K5 against its plain version and the full SA on every row of
-    `idx`, narrow and wide, shifts 2, 4 and 5; times at shift 5."""
+    `idx`, narrow and wide, shifts 2, 4 and 5, and on the edge rows of
+    utils.sim at shifts 0, 1 and 5; times at shift 5, with the walks'
+    steps and what one row a thread would waste of them."""
     import torch
 
     from tpubwa_torch.ops.fm import (DeviceIndex, build_sampled_sa,
                                      sa_lookup_sampled)
     from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
+    from tpubwa_torch.utils.sim import sa_edge_rows
 
     k5 = sa_lookup_sampled_core
     n0 = k5.launches
@@ -1398,11 +1476,24 @@ def phase_k5(idx) -> dict:
     err, times = 0, {}
     for wide in (False, True):
         layout = "wide" if wide else "narrow"
+        dt = torch.int64 if wide else torch.int32
         di = DeviceIndex.from_host(idx, dev, wide=wide, sa_stub=True)
-        rows = torch.arange(n, device=dev,
-                            dtype=torch.int64 if wide else torch.int32)
-        for shift in (2, 4, 5):
+        rows = torch.arange(n, device=dev, dtype=dt)
+        for shift in (0, 1, 2, 4, 5):
             ss = build_sampled_sa(None, shift, wide, idx=idx, device=dev)
+            edge = sa_edge_rows(idx, shift)
+            er = torch.as_tensor(edge, device=dev).to(dt)
+            got = k5(di, ss, er, shift)
+            want = sa_lookup_sampled(di, ss, er, shift)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and torch.equal(
+                got.to(torch.int64).cpu(), torch.as_tensor(idx.sa[edge])),
+                f"K5 == plain == full SA on the {edge.size} edge rows "
+                f"({layout}, shift {shift})")
+            if shift < 2:
+                print(f"[k5] {layout} shift {shift}: {edge.size} edge rows "
+                      "== plain == full SA")
+                continue
             got = k5(di, ss, rows, shift)
             want = sa_lookup_sampled(di, ss, rows, shift)
             torch.cuda.synchronize()
@@ -1414,32 +1505,68 @@ def phase_k5(idx) -> dict:
             check(torch.equal(got.to(torch.int64), sa),
                   f"K5 == the full SA ({layout}, shift {shift})")
             err = max(err, diff)
-            line = (f"[k5] {layout} shift {shift}: {n} rows == plain == "
-                    "full SA")
+            line = (f"[k5] {layout} shift {shift}: {n} rows and "
+                    f"{edge.size} edge rows == plain == full SA")
             if shift == 5:
                 ms = _cuda_ms(lambda: k5(di, ss, rows, shift), reps=10)
                 plain_ms = _cuda_ms(
                     lambda: sa_lookup_sampled(di, ss, rows, shift), reps=2)
-                steps = float((sa % (1 << shift)).double().mean())
-                # a row takes sa mod 2^shift LF steps and one more probe;
-                # the tables are read at most once, the rest is reuse
-                n_steps = int((sa % (1 << shift)).sum())
-                tables = _nbytes(di.cp, ss.blocks, ss.vals)
-                row_b = (di.cp.shape[1] + ss.blocks.shape[1]) \
-                    * di.cp.element_size()
-                moved = 2 * _nbytes(rows) + min(tables,
-                                                (n_steps + n) * row_b)
-                times[layout] = dict(
-                    ms=ms, plain_ms=plain_ms,
-                    **bound(moved, (n_steps + n) * OPS_LF_STEP))
-                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                         f"mean LF steps {steps:.3f} (of at most "
-                         f"{(1 << shift) - 1}); {moved} bytes: bound "
-                         f"{times[layout]['bound_ms']:.4f} ms by "
-                         f"{times[layout]['bound_by']}")
+                b = k5_bound(di, ss, rows, got, shift, n)
+                times[layout] = {k: b[k] for k in ("bound_ms", "bound_by",
+                                                   "library_ms")}
+                times[layout].update(ms=ms, plain_ms=plain_ms)
+                line += (f"; kernel {ms:.3f} ms ({k5_card(di, ss, rows, shift)}"
+                         f"), plain {plain_ms:.3f} ms; {k5_walks(sa, shift)}; "
+                         f"{b['steps']} LF steps, {b['moved']} bytes: bound "
+                         f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
             print(line)
     k5.launches = n0
     return dict(max_abs_err=err, **times["narrow"])
+
+
+def k5_card(di, ss, rows, shift: int, **kw) -> str:
+    """K5's time on the card's clock (torch.profiler) for one call."""
+    from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
+
+    with keep_launches():
+        split = device_ms(lambda: sa_lookup_sampled_core(
+            di, ss, rows, shift, **kw), "sa_sampled_kernel")
+    return (f"{split[0]:.4f} ms on the card's clock" if split
+            else "card's clock not measured")
+
+
+def k5_calls(calls: list, shift: int) -> None:
+    """Every K5 call of a counted run (seed_rows' lookups, a call a
+    batch), one line a call: rows, live rows, kernel and plain ms, the
+    bound on the live rows' walks; exact against the plain version."""
+    import torch
+
+    from tpubwa_torch.ops.fm import sa_lookup_sampled
+    from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
+
+    with keep_launches():
+        for i, (args, kw, _) in enumerate(calls):
+            di, ss, rows, sh = args
+            check(sh == shift, "the run's shift")
+            got = sa_lookup_sampled_core(*args, **kw)
+            want = sa_lookup_sampled(*args, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K5 == plain on call {i + 1}")
+            live = int(kw["n_live"]) if kw.get("n_live") is not None \
+                else rows.numel()
+            ms = _cuda_ms(lambda: sa_lookup_sampled_core(*args, **kw),
+                          reps=10)
+            _, plain_ms = _timed(lambda: sa_lookup_sampled(*args, **kw))
+            b = k5_bound(di, ss, rows, got, shift, live)
+            # every row of the buffer, as the first design walked them
+            every_ms = _cuda_ms(lambda: sa_lookup_sampled_core(
+                di, ss, rows, sh), reps=10)
+            print(f"[8a] K5 call {i + 1}: {rows.numel()} rows, {live} live; "
+                  f"kernel {ms:.4f} ms, {k5_card(*args, **kw)}; plain "
+                  f"{plain_ms:.3f} ms; {b['steps']} LF steps: bound "
+                  f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+                  f"({100 * b['bound_ms'] / ms:.1f}% of it reached); every "
+                  f"row: {every_ms:.4f} ms, {k5_card(di, ss, rows, sh)}")
 
 
 # ---------------------------------------------------------------- 8 ----
@@ -1464,6 +1591,7 @@ def phase_index_modes(se: dict, pe_files: tuple) -> dict:
     from tpubwa_torch.index.fmindex import FMIndex
     from tpubwa_torch.align import pair
     from tpubwa_torch.align.pipeline import Aligner
+    from tpubwa_torch.ops import seeds
     from tpubwa_torch.ops.fm import DeviceIndex, build_sampled_sa
 
     dev = torch.device("cuda")
@@ -1472,10 +1600,15 @@ def phase_index_modes(se: dict, pe_files: tuple) -> dict:
     # (a) sampled SA, bwa's default interval of 32
     al = Aligner(idx, MemOptions(batch_reads=BATCH, sa_sample_shift=5),
                  device=dev)
-    _sync()
-    reset_launches()
-    text, cold = _timed_se(al, fq)
-    launches = read_launches()
+    k5_captured: list = []
+    with capture_first(seeds, "sa_lookup_sampled_core", k5_captured,
+                       limit=64):
+        _sync()
+        reset_launches()
+        text, cold = _timed_se(al, fq)
+        launches = read_launches()
+    check(len(k5_captured) == launches["sa_sampled"],
+          "every K5 call of the --sa-shift 5 run captured")
     check(launches["sa_sampled"] > 0, "the --sa-shift 5 run launched K5")
     check(text == body, "--sa-shift 5 SAM body == phase 4's")
     text, warm = _timed_se(al, fq)
@@ -1487,6 +1620,7 @@ def phase_index_modes(se: dict, pe_files: tuple) -> dict:
           f"{N_READS / warm:.1f} reads/s; launches {launches}; device SA "
           f"bytes: full {full_b} vs sampled {ss_b} (blocks + vals, "
           f"{full_b / ss_b:.2f}x less)")
+    k5_calls(k5_captured, 5)
 
     # (b) the wide layout, forced
     al = Aligner(idx, MemOptions(batch_reads=BATCH), device=dev)
@@ -1680,8 +1814,12 @@ def main() -> int:
     se = phase_se(fa, fq)
     gather_rate(se["idx"])
     for side, (a, k) in sorted(se["captured"].items()):
+        ms = {}
         for kern in ("extend", "extend_b"):
             res[kern].append(compare(kern, f"SE batch 1 {side} core", a, k))
+            ms[kern] = res[kern][-1]["ms"]
+        print(f"[k1b] SE batch 1 {side} core: K1b {ms['extend_b']:.3f} ms "
+              f"beside K1 {ms['extend']:.3f} ms; {band_share(a, k)}")
     ga_real = ga_calls("SE", se["ga"])
     res["global_align"].append(ga_real)
     pe_launches, b_launches, (sw_args, sw_kw), pe_ga = phase_pe(pe_files)

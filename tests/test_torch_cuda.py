@@ -6,8 +6,9 @@ against ``sa_lookup_sampled``, K2 (csrc/smem_chain.cu; three rounds,
 int32 and int64) against the plain chains, K3 (csrc/global_align.cu; pack
 and step rows) against ``_ga_rows_plain`` and
 ``global_align_cigar_batch``, exact on every field, and each wrapper's
-launch counter (K1 and K4 also on the adversarial job sets of
-``utils.sim``, with scores beyond 16 bits among them); and a ``-t 4`` SE run equal to ``-t 1``.  Needs a CUDA
+launch counter (K1, K1b and K4 also on the adversarial job sets of
+``utils.sim``, with scores beyond 16 bits among them, K5 on its edge rows
+and with counts of live rows); and a ``-t 4`` SE run equal to ``-t 1``.  Needs a CUDA
 card and nvcc (the kernels are compiled on first use); skipped where
 torch sees no GPU.  Imports neither jax nor the JAX package, so it runs on
 a machine without them:
@@ -139,17 +140,23 @@ def _edge_extend(case):
                            ).astype(np.int32)
     elif case == "beyond_16_bits":  # scores that no 16-bit lane holds
         jobs[5] = jobs[5] * 5000
+    elif case == "beyond_23_bits":  # K1b's (H << 8 | j) key does not hold
+        jobs[5] = jobs[5] * 50000   # the h0 = 200 jobs: two reductions
     return jobs, kw
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("core_name", ["extend_core", "extend_core_b"],
+                         ids=["K1", "K1b"])
 @pytest.mark.parametrize("case", ["default", "zdrop8", "no_zdrop", "small_q",
                                   "wide_q", "one_job", "mostly_dead",
-                                  "skewed_gaps", "beyond_16_bits"])
-def test_kernel_matches_plain_on_edge_jobs(cuda, case):
+                                  "skewed_gaps", "beyond_16_bits",
+                                  "beyond_23_bits"])
+def test_kernel_matches_plain_on_edge_jobs(cuda, case, core_name):
+    from tpubwa_torch.ops import extend_cuda
     from tpubwa_torch.ops.extend import _extend_core
-    from tpubwa_torch.ops.extend_cuda import extend_core
 
+    extend_core = getattr(extend_cuda, core_name)
     jobs, kw = _edge_extend(case)
     q, ql, t, tl, w, h0, bonus = (torch.as_tensor(a, device=cuda)
                                   for a in jobs)
@@ -161,8 +168,8 @@ def test_kernel_matches_plain_on_edge_jobs(cuda, case):
     want = _extend_core(q, ql, t, tl, mat, w, h0, bonus, **kw)
     for name, g, p in zip(want._fields, got, want):
         assert torch.equal(g.cpu(), p.cpu()), name
-    if case == "beyond_16_bits":
-        assert int(got.score.max()) > 1 << 16
+    if case.startswith("beyond"):
+        assert int(got.score.max()) > (1 << 23 if "23" in case else 1 << 16)
     if case == "zdrop8":
         assert bool(((got.tle < tl) & (got.score > h0)).any())
     # the same jobs as bytes, and as column slices of one int32 buffer
@@ -273,6 +280,52 @@ def test_sa_sampled_kernel_matches_plain_on_card(cuda, shift, wide):
     want = sa_lookup_sampled(di, ss, r, shift)
     assert torch.equal(got.cpu(), want.cpu())
     np.testing.assert_array_equal(got.cpu().numpy(), idx.sa[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+def test_sa_sampled_kernel_matches_plain_on_edge_rows(cuda, wide):
+    """K5 on ``utils.sim.sa_edge_rows`` (the longest walks, the primary row
+    and its neighbours, rows 0 and N, the blocks' word edges, 3,001 rows),
+    at shifts 0, 1 and 5, one row alone, in each of its four modes, and
+    with counts of live rows: below the count the full SA, past it 0."""
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.io.fasta import Contig
+    from tpubwa_torch.ops.fm import (DeviceIndex, build_sampled_sa,
+                                     sa_lookup_sampled)
+    from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
+    from tpubwa_torch.utils.sim import sa_edge_rows
+    from tpubwa_torch.utils.simgenome import repeat_genome
+
+    n = 40_000
+    codes = repeat_genome(np.random.default_rng(9), n)
+    idx = FMIndex.build([Contig("c1", n, 0)], codes)
+    di = DeviceIndex.from_host(idx, cuda, wide=wide, sa_stub=True)
+    dt = torch.int64 if wide else torch.int32
+    for shift in (0, 1, 5):
+        ss = build_sampled_sa(None, shift, wide, idx=idx, device=cuda)
+        rows = sa_edge_rows(idx, shift)
+        r = torch.as_tensor(rows, device=cuda).to(dt)
+        for sel in (slice(None), slice(0, 1)):
+            got = sa_lookup_sampled_core(di, ss, r[sel], shift)
+            torch.cuda.synchronize()
+            assert got.dtype == dt
+            assert torch.equal(got.cpu(), sa_lookup_sampled(
+                di, ss, r[sel], shift).cpu())
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          idx.sa[rows[sel]])
+        for live in (0, 1, 33, 1000, rows.size, rows.size + 9):
+            n_live = torch.tensor(live, dtype=torch.int32, device=cuda)
+            n0 = sa_lookup_sampled_core.launches
+            got = sa_lookup_sampled_core(di, ss, r, shift, n_live=n_live)
+            torch.cuda.synchronize()
+            assert sa_lookup_sampled_core.launches == n0 + 1
+            k = min(live, rows.size)
+            assert torch.equal(got.cpu(), sa_lookup_sampled(
+                di, ss, r, shift, n_live=n_live).cpu())
+            np.testing.assert_array_equal(got[:k].cpu().numpy(),
+                                          idx.sa[rows[:k]])
+            assert bool((got[k:] == 0).all())
 
 
 def _chain_setup(cuda, wide, n=48_000, B=96, L=160):

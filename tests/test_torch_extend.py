@@ -218,7 +218,7 @@ def test_retry_band_path_matches_jax():
     assert (aw.numpy() == 4).any()
 
 
-# ------------------------- what K1's wrapper does around the kernel ----
+# ------------ what K1's and K1b's wrapper does around the kernels ----
 
 def _edge(zdrop, Q=40, T=64):
     from tpubwa_torch.utils.sim import extend_edge_jobs
@@ -349,18 +349,20 @@ def test_codes_are_read_as_given():
     assert qc.dtype == tc.dtype == torch.uint8 and qc.stride(0) == 30
 
 
-def test_kernel_wrapper_refuses_what_the_kernel_cannot_hold():
-    """K1's launch path checks its inputs before it builds anything: a
-    query wider than its largest group, a matrix that is not 5 x 5, and
-    per-job vectors of the wrong length raise."""
-    from tpubwa_torch.ops.extend_cuda import MAX_Q, _launch_k1
+@pytest.mark.parametrize("kernel", ["extend", "extend_b"])
+def test_kernel_wrapper_refuses_what_the_kernel_cannot_hold(kernel):
+    """K1's and K1b's launch path checks its inputs before it builds
+    anything: a query wider than its largest group, a matrix that is not
+    5 x 5, and per-job vectors of the wrong length raise; so does an
+    ablation variant of K1b at a width it is not built for."""
+    from tpubwa_torch.ops.extend_cuda import MAX_Q, _launch
 
-    def call(Q=8, J=4, mat=MAT, n=None):
+    def call(Q=8, J=4, mat=MAT, n=None, variant=None):
         n = J if n is None else n
         z = torch.zeros(n, dtype=torch.int32)
-        return _launch_k1(torch.zeros((J, Q), dtype=torch.int32), z,
-                          torch.zeros((J, 9), dtype=torch.int32), z, mat, z,
-                          z, z, **_kw(100))
+        return _launch(kernel, torch.zeros((J, Q), dtype=torch.int32), z,
+                       torch.zeros((J, 9), dtype=torch.int32), z, mat, z,
+                       z, z, **_kw(100), variant=variant)
 
     with pytest.raises(ValueError, match="Q="):
         call(Q=MAX_Q + 1)
@@ -368,3 +370,56 @@ def test_kernel_wrapper_refuses_what_the_kernel_cannot_hold():
         call(mat=np.zeros(24, np.int32))
     with pytest.raises(ValueError, match="qlen"):
         call(n=3)
+    if kernel == "extend_b":
+        with pytest.raises(ValueError, match="ablation"):
+            call(Q=100, variant=1)
+
+
+@pytest.mark.parametrize("codes", ["int32", "bytes", "slices"])
+def test_k1b_takes_k1s_jobs_codes_and_scores(codes):
+    """K1b is launched with what K1 is (``kernel_args``): the band clamp
+    and sort keys of ``job_keys_core``, ``job_order``'s order (the kernel
+    finds the size classes in the sorted keys), the codes where they lie
+    (bytes, or column slices of a wider int32 buffer, at their strides),
+    and the matrix as a tensor on the jobs' device (no host read).  The
+    order, the plain version and the scatter give the plain result; every
+    job's qlen fits the columns of its class."""
+    from tpubwa_torch.ops.extend import _extend_core, clamp_band_batch
+    from tpubwa_torch.ops.extend_cuda import (SIZE_CLASSES, job_keys,
+                                              job_order, kernel_args,
+                                              size_class)
+
+    q, qlen, t, tlen, w, h0, bonus = _edge(5)
+    T_ = torch.as_tensor
+    qt, tt = T_(q), T_(t)
+    if codes == "bytes":
+        qt, tt = qt.to(torch.uint8), tt.to(torch.uint8)
+    elif codes == "slices":
+        buf = torch.cat([qt, tt, qt], dim=1)
+        qt, tt = buf[:, :q.shape[1]], buf[:, q.shape[1]:-q.shape[1]]
+    kw = _kw(OPT.zdrop)
+    gaps = {k: v for k, v in kw.items() if k != "zdrop"}
+    args = [qt, T_(qlen), tt, T_(tlen), MAT, T_(w), T_(h0), T_(bonus)]
+    tensors, ints = kernel_args(*args, **gaps)
+    qc, tc, ql, tl, wc, hh, skeys, order, start, mat, out = tensors
+    assert qc is qt and tc is tt                   # read where they lie
+    J, Q, T = len(qlen), q.shape[1], t.shape[1]
+    assert ints == (J, Q, T, qt.stride(0), tt.stride(0), qt.element_size())
+    assert torch.is_tensor(mat) and mat.dtype == torch.int32
+    assert torch.equal(mat, T_(MAT).reshape(-1).to(torch.int32))
+    want_wc = clamp_band_batch(T_(w), T_(qlen), OPT.a, OPT.o_del,
+                               OPT.e_del, OPT.o_ins, OPT.e_ins, T_(bonus))
+    assert torch.equal(wc, want_wc)
+    want_keys, want_order = job_order(job_keys(T_(qlen), T_(tlen), want_wc,
+                                               Q, T))
+    assert torch.equal(skeys, want_keys) and torch.equal(order, want_order)
+    assert start.numel() == len(SIZE_CLASSES) + 2 and out.shape == (6, J)
+    cls = size_class(skeys).numpy()
+    for c, (_, lanes, cols) in enumerate(SIZE_CLASSES):
+        assert (qlen[order.numpy()][cls == c] <= lanes * cols).all()
+    want = _rows(_extend_core(*args, **kw))
+    perm = [a[order] if torch.is_tensor(a) and a.dim() and a.shape[0] == J
+            else a for a in args]
+    got = np.empty_like(want)
+    got[:, order.numpy()] = _rows(_extend_core(*perm, **kw))
+    np.testing.assert_array_equal(got, want)

@@ -3,7 +3,9 @@
 * ``build_sampled_sa`` gives the JAX build's ``blocks`` and ``vals``
   (shifts 2 and 4, narrow and wide).
 * The plain ``sa_lookup_sampled`` equals the JAX one and the full SA over
-  every row of tests/test_sampled_sa.py's 60 kb repeat genome.
+  every row of tests/test_sampled_sa.py's 60 kb repeat genome, and on the
+  edge rows of ``utils.sim.sa_edge_rows``; with a count of live rows, the
+  rows past it are 0.
 * ``seed_rows`` with a sampled SA equals the JAX ``seed_rows`` with one.
 * The SE SAM with ``sa_sample_shift=4`` equals the JAX package's.
 
@@ -68,8 +70,8 @@ def test_build_matches_jax(fixture, shift, wide):
 
     _, _, idx = fixture
     _, want = _jax_state(idx, shift, wide)
-    for got in (build_sampled_sa(None, shift, wide, idx=idx),
-                build_sampled_sa(idx.sa, shift, wide)):
+    for got in (build_sampled_sa(None, shift, wide, idx=idx, device="cpu"),
+                build_sampled_sa(idx.sa, shift, wide, device="cpu")):
         for k in ("blocks", "vals"):
             g = getattr(got, k).numpy()
             assert g.dtype == want[k].dtype, k
@@ -78,17 +80,14 @@ def test_build_matches_jax(fixture, shift, wide):
         assert (want["blocks"][:, 1:3] < 0).any()
 
 
-@pytest.mark.parametrize("shift,wide", [(2, False), (4, False), (4, True)])
-def test_lookup_every_row_matches_jax_and_full_sa(fixture, shift, wide):
+def _jax_lookup(idx, shift, wide, rows):
+    """(the JAX ``sa_lookup_sampled`` of `rows`, the port's DeviceIndex
+    and SampledSA on the CPU, made from the JAX package's arrays)."""
     from tpubwa.ops.fm import (DeviceIndex as JaxDI, SampledSA as JaxSS,
                                sa_lookup_sampled as jax_lookup)
     from tpubwa_torch.ops.fm import DeviceIndex, SampledSA
-    from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
 
-    _, _, idx = fixture
     di_np, ss_np = _jax_state(idx, shift, wide)
-    rows = np.arange(idx.sa_ls.shape[0],
-                     dtype=np.int64 if wide else np.int32)
     if wide:
         jax.config.update("jax_enable_x64", True)
     try:
@@ -98,12 +97,72 @@ def test_lookup_every_row_matches_jax_and_full_sa(fixture, shift, wide):
             jnp.asarray(rows), shift))
     finally:
         jax.config.update("jax_enable_x64", False)
-    di = DeviceIndex.from_numpy(di_np, "cpu")
-    ss = SampledSA.from_numpy(ss_np, "cpu")
+    return (want, DeviceIndex.from_numpy(di_np, "cpu"),
+            SampledSA.from_numpy(ss_np, "cpu"))
+
+
+@pytest.mark.parametrize("shift,wide", [(2, False), (4, False), (4, True)])
+def test_lookup_every_row_matches_jax_and_full_sa(fixture, shift, wide):
+    from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
+
+    _, _, idx = fixture
+    rows = np.arange(idx.sa_ls.shape[0],
+                     dtype=np.int64 if wide else np.int32)
+    want, di, ss = _jax_lookup(idx, shift, wide, rows)
     got = sa_lookup_sampled_core(di, ss, torch.as_tensor(rows), shift)
     assert got.dtype == (torch.int64 if wide else torch.int32)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), idx.sa)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("shift", [0, 1, 5])
+def test_lookup_edge_rows_match_jax_and_full_sa(fixture, shift, wide):
+    """``utils.sim.sa_edge_rows``: the longest walks, the primary row and
+    its neighbours, rows 0 and N, the 64-row blocks' word edges, a count
+    that is a multiple of no block size, and one row alone."""
+    from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
+    from tpubwa_torch.utils.sim import SA_EDGE_ROWS, sa_edge_rows
+
+    _, _, idx = fixture
+    rows = sa_edge_rows(idx, shift).astype(np.int64 if wide else np.int32)
+    n, intv = idx.sa.size, 1 << shift
+    assert rows.size == SA_EDGE_ROWS and SA_EDGE_ROWS % 32
+    assert {0, n - 1, idx.primary - 1, idx.primary,
+            idx.primary + 1} <= set(rows.tolist())
+    assert (idx.sa[rows] % intv == intv - 1).sum() >= min(
+        1000, (idx.sa % intv == intv - 1).sum())
+    assert set((rows & 63).tolist()) >= {0, 31, 32, 63}
+    want, di, ss = _jax_lookup(idx, shift, wide, rows)
+    got = sa_lookup_sampled_core(di, ss, torch.as_tensor(rows), shift)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), idx.sa[rows])
+    one = sa_lookup_sampled_core(di, ss, torch.as_tensor(rows[:1]), shift)
+    np.testing.assert_array_equal(one.numpy(), want[:1])
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_lookup_live_rows(fixture, wide):
+    """With a count of live rows (a tensor, as ``seed_rows`` passes
+    ``n_total``) the rows below it equal the JAX function and the rest are
+    0; without one, every row is looked up."""
+    from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
+    from tpubwa_torch.utils.sim import sa_edge_rows
+
+    _, _, idx = fixture
+    shift = 4
+    rows = sa_edge_rows(idx, shift).astype(np.int64 if wide else np.int32)
+    want, di, ss = _jax_lookup(idx, shift, wide, rows)
+    r = torch.as_tensor(rows)
+    np.testing.assert_array_equal(
+        sa_lookup_sampled_core(di, ss, r, shift).numpy(), want)
+    for live in (0, 1, 1000, rows.size, rows.size + 9):
+        got = sa_lookup_sampled_core(
+            di, ss, r, shift, n_live=torch.tensor(live, dtype=torch.int32)
+        ).numpy()
+        k = min(live, rows.size)
+        np.testing.assert_array_equal(got[:k], want[:k])
+        assert (got[k:] == 0).all()
 
 
 def test_seed_rows_with_sampled_sa_matches_jax(fixture):
@@ -143,7 +202,8 @@ def test_seed_rows_with_sampled_sa_matches_jax(fixture):
                              torch.as_tensor(lens), **kw)
     got = seed_rows(di, sm, max_occ=opt.max_occ,
                     per_read_cap=opt.max_seeds_per_read,
-                    ss=build_sampled_sa(None, shift, False, idx=idx),
+                    ss=build_sampled_sa(None, shift, False, idx=idx,
+                                        device="cpu"),
                     sa_shift=shift)
     n = int(want.n)
     assert int(got.n) == n > 100

@@ -145,7 +145,7 @@ def test_wide_sam_matches_jax_golden(golden, kind, shift):
                  device="cpu")
     al.di = DeviceIndex.from_host(idx, "cpu", wide=True, sa_stub=bool(shift))
     if shift:
-        al.ss = build_sampled_sa(None, shift, True, idx=idx)
+        al.ss = build_sampled_sa(None, shift, True, idx=idx, device="cpu")
     assert al.di.cp.dtype == al.di.sa.dtype == torch.int64
     out = io.StringIO()
     out.write(sam_header(idx.contigs, "test", "0"))

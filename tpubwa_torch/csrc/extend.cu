@@ -25,7 +25,8 @@
 //     jobs are alike and the long jobs start first.  Dead jobs get their
 //     constant result from a thread each.  Two one-thread-per-job kernels
 //     stand around the caller's sort: one clamps the bands and makes the
-//     keys, one finds the class boundaries in the sorted keys.  (As torch
+//     keys, one finds the class boundaries in the sorted keys (both in
+//     csrc/extend_jobs.cuh, which K1b shares).  (As torch
 //     operations the clamp and the keys were ~25 launches a call, and the
 //     host's launch time, not the card's, was what one measured.)
 //   - Lane l of a group holds the query columns [l*C, l*C + C) of H and E,
@@ -54,72 +55,11 @@
 // Scores stay in 32-bit lanes; there is no packed 16-bit path.
 #include <cuda_runtime.h>
 
+#include "extend_jobs.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kClasses = 5;   // four live size classes and the dead jobs
-constexpr int kKeyShift = 16;  // key = qlen << 16 | rows, 0 for a dead job
-
-struct Params {
-  int J, Q, T;
-  int q_stride, t_stride;  // elements between the rows of query and target
-  int o_del, e_del, o_ins, e_ins, zdrop;
-};
-
-// max(max(a + b, c), 0)
-__device__ __forceinline__ int addmax_relu(int a, int b, int c) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  return __viaddmax_s32_relu(a, b, c);
-#else
-  return max(max(a + b, c), 0);
-#endif
-}
-
-// size class of a sorted key: 0 (longest) .. 3, 4 = dead
-__device__ __forceinline__ int key_class(int key) {
-  const int qlen = key >> kKeyShift;
-  return qlen > 128 ? 0 : qlen > 64 ? 1 : qlen > 32 ? 2 : qlen >= 1 ? 3 : 4;
-}
-
-// floor(x / e), as torch.div(rounding_mode="floor") on int32
-__device__ __forceinline__ int floor_div(int x, int e) {
-  if (e == 0) return 0;
-  const int q = x / e;
-  return (x % e != 0 && (x < 0) != (e < 0)) ? q - 1 : q;
-}
-
-// The ksw band clamp (ops/extend.py::clamp_band_batch) and the sort key
-// (ops/extend_cuda.py::job_keys) of every job: wc, keys [J].
-__global__ void prep_kernel(const int* __restrict__ qlen_a,
-                            const int* __restrict__ tlen_a,
-                            const int* __restrict__ w_a,
-                            const int* __restrict__ bonus_a, int mat_max,
-                            int* __restrict__ wc_a, int* __restrict__ keys,
-                            const Params p) {
-  const int job = blockIdx.x * blockDim.x + threadIdx.x;
-  if (job >= p.J) return;
-  const int reach = qlen_a[job] * mat_max + bonus_a[job];
-  const int max_ins = floor_div(reach - p.o_ins, p.e_ins) + 1;
-  const int max_del = floor_div(reach - p.o_del, p.e_del) + 1;
-  const int w = min(min(w_a[job], max(max_ins, 1)), max(max_del, 1));
-  wc_a[job] = w;
-  const int ql = min(qlen_a[job], p.Q);
-  const int tl = min(tlen_a[job], p.T);
-  const int rows = min(max(min(tl, ql + w), 0), (1 << kKeyShift) - 1);
-  keys[job] = ql > 0 && tl > 0 ? (ql << kKeyShift) | rows : 0;
-}
-
-// start[c] = first sorted position of class >= c (c = 0 .. kClasses), from
-// the keys in descending order: thread p writes the classes that begin at p.
-__global__ void class_bounds_kernel(const int* __restrict__ keys, int J,
-                                    int* __restrict__ start) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p > J) return;
-  const int prev = p == 0 ? -1 : key_class(keys[p - 1]);
-  const int cur = p == J ? kClasses : key_class(keys[p]);
-  for (int c = prev + 1; c <= cur; ++c) start[c] = p;
-}
 
 // G lanes (a power of two) work on the job at sorted position `pos`, or
 // idle along with the warp's other groups if `pos` is past the class.
@@ -276,7 +216,7 @@ extend_kernel(const Code* __restrict__ query, const Code* __restrict__ target,
 #pragma unroll
   for (int c = 0; c < kClasses; ++c) {
     const int s1 = start[c + 1];
-    const int per = c < 2 ? 1 : c == 2 ? 2 : c == 3 ? 4 : 32;
+    const int per = jobs_per_warp(c);
     const int warps = (s1 - s0 + per - 1) / per;
     if (wi < warps) {
       const int first = s0 + wi * per;
@@ -291,15 +231,8 @@ extend_kernel(const Code* __restrict__ query, const Code* __restrict__ target,
       else if (c == 2) TPUBWA_GROUP(16, 4)
       else if (c == 3) TPUBWA_GROUP(8, 4)
 #undef TPUBWA_GROUP
-      else if (first + lane < s1) {  // a dead job: nothing to extend
-        const int job = static_cast<int>(order[first + lane]);
-        out[0 * p.J + job] = h0_a[job];
-        out[1 * p.J + job] = 0;
-        out[2 * p.J + job] = 0;
-        out[3 * p.J + job] = 0;
-        out[4 * p.J + job] = -1;
-        out[5 * p.J + job] = 0;
-      }
+      else if (first + lane < s1)  // a dead job: nothing to extend
+        write_dead(h0_a, out, static_cast<int>(order[first + lane]), p.J);
       return;
     }
     wi -= warps;
@@ -320,8 +253,6 @@ int launch(const void* query, const void* target, const int* qlen,
       tlen, w, h0, order, start, mat, out, p);
   return static_cast<int>(cudaGetLastError());
 }
-
-bool bad_shape(int Q, int T) { return Q < 1 || Q > 256 || T < 1; }
 
 }  // namespace
 

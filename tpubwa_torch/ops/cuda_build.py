@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source has a plain C interface.  ``build`` compiles it
 with nvcc for sm_90a into ``build/tpubwa_torch/`` at first use, keyed by a
 hash of the source, and loads it with ctypes; each kernel gets its own
-``.so`` and sets its own argtypes.  There is no fallback: a missing nvcc
-or a failed build raises.
+``.so`` and sets its own argtypes; ``csrc/*.cuh`` holds what sources
+share, and the key covers it.  There is no fallback: a missing nvcc or a
+failed build raises.
 
 ``-t N`` worker threads share the wrappers, so the first build of a
 kernel and the wrappers' ``launches`` counters are guarded.  Each source
@@ -56,12 +57,16 @@ def _nvcc(src: Path) -> str:
 
 
 def build(name: str) -> tuple[ctypes.CDLL, str]:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source
-    exists, and load it.  Returns (library, nvcc's register/shared-memory
-    report; "" when the build already existed)."""
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source (and
+    of the headers beside it) exists, and load it.  Returns (library,
+    nvcc's register/shared-memory report; "" when the build already
+    existed)."""
     with lock(name):
         src = CSRC / f"{name}.cu"
-        tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        h = hashlib.sha256(src.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):   # what a source includes
+            h.update(header.read_bytes())
+        tag = h.hexdigest()[:16]
         so = BUILD_DIR / f"libtpubwa_{name}_{tag}.so"
         report = ""
         if not so.exists():

@@ -12,9 +12,11 @@ Two kernels compute ``ops.extend._extend_core``'s function bit for bit:
   result to its job's own slot, so nothing is permuted in memory),
   ``size_class`` (the classes the kernel derives from the sorted keys)
   and ``as_codes`` (which code tensors are read as they are);
-* K1b, ``csrc/extend_b.cu``: one warp per job, a job's row spread across
-  the lanes (port of ``_kernel``, the round-4 [B, Q] layout).  Its
-  ablation variants (``VARIANTS``, the port of
+* K1b, ``csrc/extend_b.cu``: the same jobs, keys, order and size classes
+  (``kernel_args`` gives both kernels the same arguments), but a job's
+  whole row at a time, spread across its group of lanes, with F from a
+  max-scan across them (port of ``_kernel``, the round-4 [B, Q] layout).
+  Its ablation variants (``VARIANTS``, the port of
   ``scripts/ablate_kernel_r5.py``) are for timing only.
 
 Each source is built by ``ops.cuda_build`` at first use and loaded with
@@ -31,7 +33,7 @@ import torch
 
 from tpubwa_torch.ops import cuda_build
 from tpubwa_torch.ops.extend import (ExtendBatchResult, _extend_core,
-                                     clamp_band_batch, score_values)
+                                     clamp_band_batch)
 
 I32 = torch.int32
 
@@ -39,13 +41,14 @@ I32 = torch.int32
 # arguments), ...)
 _ENTRY = {"extend": (("extend", "tpubwa_extend_launch", 11, 11),
                      ("extend_prep", "tpubwa_extend_prep", 6, 8)),
-          "extend_b": (("extend_b", "tpubwa_extend_b_launch", 7, 12),)}
+          "extend_b": (("extend_b", "tpubwa_extend_b_launch", 11, 12),)}
 # K1b's ablation variants (scripts/ablate_kernel_r5.py), as OR-ed flags:
-# no_cummax 1, no_mj 2, no_m 4, no_hlast 8, no_zdrop 16.  Q = 192 only.
+# no_cummax 1, no_mj 2, no_m 4, no_hlast 8, no_zdrop 16; for the widths
+# ABLATE_Q only (the script's Q = 192: six columns a lane)
 VARIANTS = {"full": 0, "no_cummax": 1, "no_mj": 2, "no_m+mj": 6,
             "no_hlast": 8, "no_zdrop": 16, "no_all_red": 31}
-MAX_Q_B = 256   # K1b holds ceil(Q/32) <= 8 columns per lane
-MAX_Q = 256     # K1's largest group holds 32 x 8 columns
+ABLATE_Q = (161, 192)
+MAX_Q = 256     # K1's and K1b's largest group holds 32 x 8 columns
 # K1's size classes, longest first: (qlen above, lanes a job, columns a lane)
 SIZE_CLASSES = ((128, 32, 8), (64, 32, 4), (32, 16, 4), (0, 8, 4))
 KEY_SHIFT = 16  # key = qlen << 16 | rows; 0 for a job with nothing to do
@@ -161,9 +164,17 @@ def _check_jobs(query, target, **vectors) -> None:
         raise ValueError(f"target on {target.device}, query on {dev}")
 
 
-def _launch_k1(query, qlen, target, tlen, mat, w, h0, end_bonus, *,
-               o_del, e_del, o_ins, e_ins, zdrop,
-               mat_max) -> ExtendBatchResult:
+def kernel_args(query, qlen, target, tlen, mat, w, h0, end_bonus, *,
+                o_del, e_del, o_ins, e_ins, mat_max) -> tuple[tuple, tuple]:
+    """What K1 and K1b are launched with, after the input checks: (the
+    tensors, in the C entry points' order: query and target codes as
+    ``as_code_pair`` reads them, qlen, tlen, the clamped bands, h0, the
+    sorted keys, the order, the class-bounds scratch, the scores, the
+    output [6, J]; the ints: J, Q, T, the rows' strides, the code width).
+    Both kernels take the same: the band clamp and keys of
+    ``job_keys_core``, ``job_order``'s order, the classes of the sorted
+    keys, the matrix read on the device.  Device ops only, no host
+    synchronisation."""
     dev = query.device
     J, Q = query.shape
     T = target.shape[1]
@@ -176,7 +187,6 @@ def _launch_k1(query, qlen, target, tlen, mat, w, h0, end_bonus, *,
     if m.numel() != 25:
         raise ValueError(f"mat: expected a 5x5 matrix, got {m.numel()} "
                          "values")
-    build("extend")
     ql, tl, h = (a.to(I32).contiguous() for a in (qlen, tlen, h0))
     wc, keys = job_keys_core(ql, tl, w, end_bonus, Q, T, mat_max=mat_max,
                              o_del=o_del, e_del=e_del, o_ins=o_ins,
@@ -185,41 +195,50 @@ def _launch_k1(query, qlen, target, tlen, mat, w, h0, end_bonus, *,
     start = torch.empty(len(SIZE_CLASSES) + 2, dtype=I32, device=dev)
     out = torch.empty((6, J), dtype=I32, device=dev)
     qc, tc = as_code_pair(query, target)
-    ins = (qc, tc, ql, tl, wc, h, skeys, order, start, m, out)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _fns["extend"](*(a.data_ptr() for a in ins), J, Q, T,
-                            qc.stride(0), tc.stride(0), qc.element_size(),
-                            o_del, e_del, o_ins, e_ins, zdrop, stream)
-    if rc != 0:
-        raise RuntimeError(f"extend kernel launch failed: CUDA error {rc}")
-    return ExtendBatchResult(*out.unbind(0))
+    return ((qc, tc, ql, tl, wc, h, skeys, order, start, m, out),
+            (J, Q, T, qc.stride(0), tc.stride(0), qc.element_size()))
 
 
 def _launch(name, query, qlen, target, tlen, mat, w, h0, end_bonus, *,
             o_del, e_del, o_ins, e_ins, zdrop, mat_max,
             variant: int | None = None) -> ExtendBatchResult:
-    dev = query.device
-    J, Q = query.shape
-    T = target.shape[1]
-    _check_jobs(query, target, qlen=qlen, tlen=tlen, w=w, h0=h0,
-                end_bonus=end_bonus)
+    """One launch of K1 ("extend") or K1b ("extend_b"; `variant` 0, or an
+    ablation set of ``VARIANTS``)."""
+    Q = query.shape[1]
+    if variant and not ABLATE_Q[0] <= Q <= ABLATE_Q[1]:
+        raise ValueError(f"extend_b variant {variant}: Q={Q}, the ablation "
+                         f"sets are built for {ABLATE_Q[0]} <= Q <= "
+                         f"{ABLATE_Q[1]} only")
+    tensors, ints = kernel_args(query, qlen, target, tlen, mat, w, h0,
+                                end_bonus, o_del=o_del, e_del=e_del,
+                                o_ins=o_ins, e_ins=e_ins, mat_max=mat_max)
+    if variant:                  # the ablation sets read int32 codes
+        tensors = (*(a.to(I32).contiguous() for a in tensors[:2]),
+                   *tensors[2:])
+        ints = (*ints[:3], tensors[0].stride(0), tensors[1].stride(0), 4)
     build(name)
-    wc = clamp_band_batch(w.to(I32), qlen.to(I32), mat_max, o_del, e_del,
-                          o_ins, e_ins, end_bonus.to(I32))
-    ins = [a.to(I32).contiguous() for a in (query, target, qlen, tlen, wc,
-                                            h0)]
-    out = torch.empty((6, J), dtype=I32, device=dev)
-    s_match, s_mis, s_n = score_values(mat)
+    dev = query.device
     extra = () if variant is None else (variant,)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _fns[name](
-            *(a.data_ptr() for a in ins), out.data_ptr(), J, Q, T, s_match,
-            s_mis, s_n, o_del, e_del, o_ins, e_ins, zdrop, *extra, stream)
+        rc = _fns[name](*(a.data_ptr() for a in tensors), *ints, o_del,
+                        e_del, o_ins, e_ins, zdrop, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    return ExtendBatchResult(*out.unbind(0))
+    return ExtendBatchResult(*tensors[-1].unbind(0))
+
+
+def _core(name: str, wrapper, query, qlen, target, tlen, mat, w, h0,
+          end_bonus, kw: dict) -> ExtendBatchResult:
+    if query.device.type == "cpu":
+        return _extend_core(query, qlen, target, tlen, mat, w, h0,
+                            end_bonus, **kw)
+    if query.device.type != "cuda":
+        raise ValueError(f"no extension kernel for device {query.device}")
+    res = _launch(name, query, qlen, target, tlen, mat, w, h0, end_bonus,
+                  variant=0 if name == "extend_b" else None, **kw)
+    cuda_build.count_launch(wrapper)
+    return res
 
 
 def extend_core(query: torch.Tensor, qlen: torch.Tensor,
@@ -229,22 +248,10 @@ def extend_core(query: torch.Tensor, qlen: torch.Tensor,
                 zdrop: int, mat_max: int) -> ExtendBatchResult:
     """Batched ksw_extend2 (``ops.extend._extend_core``'s contract): the
     plain version for CPU tensors, K1 for CUDA tensors."""
-    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
-              zdrop=zdrop, mat_max=mat_max)
-    if query.device.type == "cpu":
-        return _extend_core(query, qlen, target, tlen, mat, w, h0,
-                            end_bonus, **kw)
-    if query.device.type != "cuda":
-        raise ValueError(f"no extension kernel for device {query.device}")
-    res = _launch_k1(query, qlen, target, tlen, mat, w, h0, end_bonus, **kw)
-    cuda_build.count_launch(extend_core)
-    return res
-
-
-def _check_b(query) -> None:
-    if query.shape[1] > MAX_Q_B:
-        raise ValueError(f"extend_b: Q={query.shape[1]} > {MAX_Q_B} "
-                         "(a lane holds at most 8 columns)")
+    return _core("extend", extend_core, query, qlen, target, tlen, mat, w,
+                 h0, end_bonus, dict(o_del=o_del, e_del=e_del, o_ins=o_ins,
+                                     e_ins=e_ins, zdrop=zdrop,
+                                     mat_max=mat_max))
 
 
 def extend_core_b(query: torch.Tensor, qlen: torch.Tensor,
@@ -253,20 +260,12 @@ def extend_core_b(query: torch.Tensor, qlen: torch.Tensor,
                   *, o_del: int, e_del: int, o_ins: int, e_ins: int,
                   zdrop: int, mat_max: int) -> ExtendBatchResult:
     """Batched ksw_extend2 (``ops.extend._extend_core``'s contract): the
-    plain version for CPU tensors, K1b (a warp per job) for CUDA
-    tensors."""
-    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
-              zdrop=zdrop, mat_max=mat_max)
-    if query.device.type == "cpu":
-        return _extend_core(query, qlen, target, tlen, mat, w, h0,
-                            end_bonus, **kw)
-    if query.device.type != "cuda":
-        raise ValueError(f"no extension kernel for device {query.device}")
-    _check_b(query)
-    res = _launch("extend_b", query, qlen, target, tlen, mat, w, h0,
-                  end_bonus, variant=0, **kw)
-    cuda_build.count_launch(extend_core_b)
-    return res
+    plain version for CPU tensors, K1b (a job's row across a group of
+    lanes) for CUDA tensors."""
+    return _core("extend_b", extend_core_b, query, qlen, target, tlen, mat,
+                 w, h0, end_bonus, dict(o_del=o_del, e_del=e_del,
+                                        o_ins=o_ins, e_ins=e_ins,
+                                        zdrop=zdrop, mat_max=mat_max))
 
 
 def extend_b_variant(variant: str, query, qlen, target, tlen, mat, w, h0,
@@ -277,7 +276,6 @@ def extend_b_variant(variant: str, query, qlen, target, tlen, mat, w, h0,
     ``extend_core_b.launches``."""
     if query.device.type != "cuda":
         raise ValueError("extend_b_variant runs on CUDA tensors only")
-    _check_b(query)
     res = _launch("extend_b", query, qlen, target, tlen, mat, w, h0,
                   end_bonus, variant=VARIANTS[variant], **kw)
     cuda_build.count_launch(extend_b_variant)

@@ -201,11 +201,13 @@ class SampledSA(NamedTuple):
                    vals=_tensor(arrays["vals"], device))
 
 
-def build_sampled_sa(sa_host, shift: int, wide: bool, idx=None,
-                     device="cpu") -> SampledSA:
+def build_sampled_sa(sa_host, shift: int, wide: bool, idx=None, *,
+                     device) -> SampledSA:
     """Host-side construction, CHUNKED: a Gbp-scale SA is ~19 GB as
     int64, and a one-shot vectorized build holds several times that in
-    transients.  Chunks of 64M rows keep the working set ~1 GB.
+    transients.  Chunks of 64M rows keep the working set ~1 GB.  The
+    tables go to ``device``, which the caller names (there is no
+    default: a forgotten device would put them on the CPU).
 
     Pass ``idx`` (FMIndex) instead of ``sa_host`` to avoid materializing
     the full int64 SA at all — chunks combine the 5-byte split storage
@@ -294,12 +296,16 @@ def _probe(ss: SampledSA, r: torch.Tensor):
 
 
 def sa_lookup_sampled(di: DeviceIndex, ss: SampledSA, rows: torch.Tensor,
-                      shift: int) -> torch.Tensor:
+                      shift: int,
+                      n_live: torch.Tensor | None = None) -> torch.Tensor:
     """Suffix positions for rows (in [0, N]) via the sampled SA: the plain
     version, all lanes in lockstep for 2^shift iterations.  Each
     iteration probes first and takes the sample (its position plus the
     steps taken so far) for rows whose bit is set, then LF-steps the rows
-    not done.  A row that reaches no sample returns 0."""
+    not done.  A row that reaches no sample returns 0.  With ``n_live``
+    (an integer tensor of one element, on the rows' device) only the
+    first ``n_live`` rows (in flat order) are looked up, and the rest are
+    0."""
     n_vals = ss.vals.shape[0]
     r = rows
     res = torch.zeros_like(rows)
@@ -310,7 +316,10 @@ def sa_lookup_sampled(di: DeviceIndex, ss: SampledSA, rows: torch.Tensor,
         res = torch.where(bit & ~done, (v + t).to(res.dtype), res)
         done = done | bit
         r = torch.where(done, r, lf_step(di, r))
-    return res
+    if n_live is None:
+        return res
+    flat = torch.arange(rows.numel(), device=rows.device).reshape(rows.shape)
+    return torch.where(flat < n_live.reshape(()), res, 0)
 
 
 # ------------------------------------------- contiguous window fetch ----

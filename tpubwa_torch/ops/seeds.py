@@ -83,8 +83,9 @@ def seed_rows(di: DeviceIndex, sm: Smems, *, max_occ: int = 500,
     sa_row = sm.k.reshape(-1)[owner] + (j * step.reshape(-1)[owner]).to(idt)
     if sa_shift > 0:
         # rows span [0, N]: clip to the text, never to the stub's sa[:1]
+        # only the rows below n_total are seeds: the rest come back 0
         rbeg = sa_lookup_sampled_core(di, ss, sa_row.clamp(0, 2 * di.l_pac),
-                                      sa_shift)
+                                      sa_shift, n_live=n_total)
     else:
         rbeg = di.sa[sa_row.clamp(0, di.sa.shape[0] - 1)]
     qbeg = sm.start.reshape(-1)[owner]

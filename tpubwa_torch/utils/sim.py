@@ -183,13 +183,16 @@ def extend_edge_jobs(seed: int, Q: int = 192, T: int = 768):
     extension jobs at the edges of ``ops.extend._extend_core``'s contract,
     to hold a kernel to the plain version.  Every combination of qlen in
     {0, 1, 31, 32, 33, 64, 65, 128, 129, Q}, tlen in {0, 1, qlen + 9, T} and
-    w in {0, 1, 7, 100, 4 * Q} (the last >= qlen), each with one of six
+    w in {0, 1, 7, 100, 4 * Q} (the last >= qlen), each with one of seven
     contents by turn: the query is the target's head; a mutated head with
     an indel; a matching head then noise (a z-drop or a zero row ends it);
     an all-N query; an all-N target; one base repeated on both sides (ties
-    for the row maximum's column and for gscore).  h0 cycles through 1, 5,
-    60 and 200.  J = 1201 is a multiple of no group or block size, and the
-    jobs come in no order of size."""
+    for gscore); one base repeated, but the query starts with a mismatch
+    and two N, so that from row 9 on (h0 >= 10) the row maximum, a new
+    best, lies on two diagonals at once, columns i and i + 3 (ties for the
+    row maximum's column).  h0 cycles through 1, 5, 60 and 200.  J = 1201
+    is a multiple of no group or block size, and the jobs come in no order
+    of size."""
     rng = np.random.default_rng(seed)
     qlens = sorted({0, 1, 31, 32, 33, 64, 65, 128, 129, Q} & set(range(Q + 1)))
     specs = [(ql, tl, w) for ql in qlens
@@ -202,7 +205,7 @@ def extend_edge_jobs(seed: int, Q: int = 192, T: int = 768):
     for r in range(J):
         qlen[r], tlen[r], w[r] = specs[r % len(specs)]
         n = min(Q, T)
-        kind = (r // len(specs) + r) % 6
+        kind = (r // len(specs) + r) % 7
         if kind <= 2:
             query[r, :n] = target[r, :n]
         if kind == 1:
@@ -219,6 +222,10 @@ def extend_edge_jobs(seed: int, Q: int = 192, T: int = 768):
             target[r] = 4
         elif kind == 5:
             query[r] = target[r] = r % 4
+        elif kind == 6:
+            query[r] = target[r] = r % 4
+            query[r, 0] = (r + 1) % 4      # -5 and twice -2 against a match:
+            query[r, 1:3] = 4              # diagonal 0 loses what 3 pays
     h0 = np.array([1, 5, 60, 200], np.int32)[np.arange(J) % 4]
     return query, qlen, target, tlen, w, h0, np.full(J, 5, np.int32)
 
@@ -248,7 +255,7 @@ def localsw_edge_jobs(seed: int, Q: int = 192, T: int = 1024):
     for r in range(J):
         ql, tl, minsc[r], endsc[r] = specs[r % len(specs)]
         qlen[r], tlen[r] = ql, tl
-        kind = (r // len(specs) + r) % 6
+        kind = (r // len(specs) + r) % 7
         if kind == 0 and tl > ql > 0:
             off = int(rng.integers(0, tl - ql))
             piece = query[r, :ql].copy()
@@ -264,6 +271,10 @@ def localsw_edge_jobs(seed: int, Q: int = 192, T: int = 1024):
             target[r] = 4
         elif kind == 5:
             query[r] = target[r] = r % 4
+        elif kind == 6:
+            query[r] = target[r] = r % 4
+            query[r, 0] = (r + 1) % 4      # -5 and twice -2 against a match:
+            query[r, 1:3] = 4              # diagonal 0 loses what 3 pays
     return query, qlen, target, tlen, minsc, endsc
 
 
@@ -424,6 +435,33 @@ def smem_edge_round2(seed: int, lens: np.ndarray):
     thr = np.array([1, 2, 5, 1000], np.int64)[rng.integers(0, 4, G)]
     act = rng.random(G) > 0.2
     return rd, mid, thr, act
+
+
+SA_EDGE_ROWS = 3001   # a multiple of no warp, block or run size
+
+
+def sa_edge_rows(idx, shift: int) -> np.ndarray:
+    """int64 rows of the FM index `idx` at the edges of a sampled-SA lookup
+    (``ops.fm.sa_lookup_sampled``) at 2^shift: rows whose walk is the
+    longest (sa mod 2^shift = 2^shift - 1; up to 1,000 of them), the
+    primary row (sa = 0) and its neighbours, rows 0 and N, rows at offsets
+    0, 31, 32 and 63 of a 64-row block (the edges of the directory's and
+    the checkpoints' words), then random rows with repeats, in no order,
+    to ``SA_EDGE_ROWS`` rows (fewer only for an index of fewer rows)."""
+    rng = np.random.default_rng(shift)
+    sa = np.asarray(idx.sa, np.int64)
+    n = sa.size                                  # rows 0 .. N
+    intv = 1 << shift
+    longest = np.flatnonzero(sa % intv == intv - 1)[:1000]
+    p = int(idx.primary)
+    ends = np.array([0, n - 1, p - 1, p, p + 1])
+    base = 64 * rng.integers(0, (n + 63) // 64, 200)
+    edges = (base[:, None] + np.array([0, 31, 32, 63])).reshape(-1)
+    rows = np.concatenate([longest, ends, edges])
+    rows = rows[(rows >= 0) & (rows < n)]
+    fill = rng.integers(0, n, max(SA_EDGE_ROWS - rows.size, 0))
+    rows = np.concatenate([rows, fill])[:SA_EDGE_ROWS]
+    return rows[rng.permutation(rows.size)]
 
 
 def main() -> None:

@@ -95,6 +95,22 @@ Phases (any failure exits non-zero):
    mem --hosts 2 --host-id h --chunks DIR` processes whose chunks make
    the single-host body; --profile on the golden fixture's first 32
    reads writes a trace (with CUDA kernel events) and the same body.
+10. The device mesh (preset v5e-4: 4 shards, batch 32768) on
+   ["cuda:0"] * 4, each body identical to one device's at batch 32768:
+   (a) phase 4's SE fixture, cold and warm beside one shard, with the K2,
+   K1 and K3 launches of both runs (K2's rounds 1 and 3 once a shard and
+   batch; round 2 once a wave, none on a shard without candidates), warm
+   reads/s, the phase tables and the SA each shard reads; (b) phase 5's PE
+   fixture the same way (one batch of 10,000 pairs: the pinned hash is
+   at batch 8192, and pestat is per batch); (c) SE with the SA sharded
+   over the 4 shards, each holding (N+1) padded / 4 rows; (d) PE on the
+   forced wide layout with the SA sharded; (e) SE with --sa-shift 5 on
+   every shard (K5 launched); (f) `python -m tpubwa_torch.cli mem
+   --preset v5e-4 --device cuda:0,cuda:0,cuda:0,cuda:0` on the golden
+   fixture equals the one-device CLI at batch 32768 and, but @PG,
+   tests/golden/se.sam; (g) `--preset v5e-4 --device cuda` exits 1 with
+   one line on fewer than 4 cards (on 4 or more it runs and equals (f));
+   (h) with two cards, (a) on cuda:0 and cuda:1.
 
 Before the last line: one JSON line of the seven kernels (launches on the
 path that runs them, agreement, kernel / plain / bound times), then the
@@ -1775,6 +1791,226 @@ def phase_serving(se: dict) -> None:
           "events), body identical")
 
 
+# --------------------------------------------------------------- 10 ----
+
+MESH = 4               # preset v5e-4: 4 shards, batch 32768
+MESH_BATCH = 32768
+
+
+def _pass(al, run) -> tuple[str, float, dict]:
+    """(SAM text, seconds, launches) of one counted pass ``run(al, out)``;
+    the launches also hold K2's by round ("k2 rounds")."""
+    from tpubwa_torch.ops import smem_chain_cuda as k2
+
+    out = io.StringIO()
+    _sync()
+    reset_launches()
+    t = time.monotonic()
+    run(al, out)
+    _sync()
+    dt = time.monotonic() - t
+    n = read_launches()
+    n["k2 rounds"] = tuple(f.launches for f in (
+        k2.smem_round1_core, k2.smem_through_core, k2.smem_round3_core))
+    return out.getvalue(), dt, n
+
+
+def _cli(tag: str, args: list) -> tuple:
+    """Start `python -m tpubwa_torch.cli mem ARGS` with its output and
+    errors going to files of WORK; returns (process, its out and err
+    paths)."""
+    paths = [os.path.join(WORK, f"cli_{tag}.{k}") for k in ("sam", "err")]
+    with open(paths[0], "w") as out, open(paths[1], "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpubwa_torch.cli", "mem", *args],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=out,
+            stderr=err, text=True)
+    return proc, paths
+
+
+def _cli_result(started: tuple) -> tuple[str, str, int]:
+    """(output, errors, exit code) of a `_cli` process, once it ends."""
+    proc, paths = started
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    texts = []
+    for path in paths:
+        with open(path) as f:
+            texts.append(f.read())
+    return texts[0], texts[1], rc
+
+
+def _launch_line(n: dict) -> str:
+    return (f"K2 {n['smem_chain']} (rounds 1/2/3: "
+            f"{'/'.join(map(str, n['k2 rounds']))}), K1 {n['extend']}, K3 "
+            f"{n['global_align']}, K4 {n['localsw']}, K5 {n['sa_sampled']}")
+
+
+def phase_mesh(se: dict, pe_files: tuple) -> None:
+    """The device mesh (preset v5e-4: 4 shards, batch 32768) on
+    ["cuda:0"] * 4 beside one device at the same batch."""
+    import dataclasses
+
+    import torch
+
+    from tpubwa_torch.align import pair
+    from tpubwa_torch.align.pipeline import Aligner, run_se_pipeline
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.ops.fm import DeviceIndex, ShardedSA
+
+    t0 = time.monotonic()
+    ref = os.path.join(WORK, "golden", "golden_ref.fa")
+    gfq = os.path.join(WORK, "golden", "se.fq")
+    mesh_dev = ",".join(["cuda:0"] * MESH)
+    # (f) and (g) are separate processes: start them now
+    n_cards = torch.cuda.device_count()
+    clis = {"f mesh": _cli("f_mesh", ["--preset", "v5e-4", "--device",
+                                      mesh_dev, ref, gfq]),
+            "f one": _cli("f_one", ["--batch", str(MESH_BATCH), "--device",
+                                    "cuda:0", ref, gfq]),
+            "g": _cli("g", ["--preset", "v5e-4", "--device", "cuda", ref,
+                            gfq])}
+
+    opt = MemOptions.preset("v5e-4")
+    check(opt.batch_reads == MESH_BATCH and opt.mesh_shape == (MESH,),
+          "preset v5e-4 is a mesh of 4 at batch 32768")
+    one_opt = MemOptions(batch_reads=MESH_BATCH)
+    mesh = ["cuda:0"] * MESH
+    se_run = (lambda al, out: run_se_pipeline(al, se["fq"], out))
+    fa, fq1, fq2 = pe_files
+    pidx = FMIndex.load(fa)
+
+    def pe_run(al, out):
+        check(pair.align_pe_fastq(al, fq1, fq2, out) == 0, "PE exits 0")
+
+    # (a) SE, and (b) PE: 4 shards beside 1 at the same batch; after a
+    # counted cold pass each, warm passes in turns: 1, 4, 4, 1, 1, 4
+    for leg, idx, run, n_reads in (("a", se["idx"], se_run, N_READS),
+                                   ("b", pidx, pe_run, 2 * N_PAIRS)):
+        als = {1: Aligner(idx, one_opt, device="cuda:0"),
+               MESH: Aligner(idx, opt, device=mesh)}
+        got = {}
+        for k, al in als.items():
+            body, cold, n = _pass(al, run)
+            got[k] = (body, n)
+            al.timers = type(al.timers)()
+            print(f"[10{leg}] {k} shard(s) on {al.mesh.devices[0]}: "
+                  f"{n_reads} reads, cold {cold:.2f} s; launches "
+                  f"{_launch_line(n)}")
+        warm = {1: [], MESH: []}
+        for k in (1, MESH, MESH, 1, 1, MESH):
+            body, dt, _ = _pass(als[k], run)
+            check(body == got[k][0], f"10{leg} {k} shard(s): warm body == "
+                  "cold")
+            warm[k].append(dt)
+        for k, al in als.items():
+            rates = [n_reads / dt for dt in warm[k]]
+            print(f"[10{leg}] {k} shard(s), warm (batch {MESH_BATCH}): "
+                  f"{', '.join(f'{r:.1f}' for r in rates)} reads/s, median "
+                  f"{sorted(rates)[1]:.1f}")
+            print_phases(f"10{leg} {k} shard(s), 3 warm passes", al.timers)
+        (one, _), (many, nm) = got[1], got[MESH]
+        check(many == one, f"10{leg}: the {MESH}-shard body == one device's")
+        # rounds 1 and 3 launch once a shard and end (PE: two ends);
+        # round 2 once a wave, and not at all on a shard whose reads
+        # give it no candidate (as on one device)
+        ends = 2 if leg == "b" else 1
+        r1, r2, r3 = nm["k2 rounds"]
+        check(r1 == r3 == MESH * ends and r2 >= ends,
+              f"10{leg}: K2 rounds 1 and 3 launched on every shard "
+              f"({nm['k2 rounds']})")
+        check(nm["extend"] > 0 and nm["global_align"] > 0,
+              f"10{leg}: K1 and K3 launched on the mesh")
+        if leg == "a":
+            check(one == se["body"], "10a: the batch-32768 body == phase "
+                  "4's (batch 8192)")
+            se_body = one
+            sa = als[MESH].di.sa
+            print(f"[10a] SA copied: one copy of {_nbytes(sa)} B on cuda:0; "
+                  f"each of the {MESH} shards reads all of it")
+        else:
+            check(nm["localsw"] > 0, "10b: K4 launched on the mesh")
+            pe_body = one
+        print(f"[10{leg}] {MESH}-shard body == one device's "
+              f"({len(many)} bytes)")
+
+    # (c) SE with the SA sharded over the mesh
+    sh = dataclasses.replace(opt, shard_sa=True)
+    al = Aligner(se["idx"], sh, device=mesh)
+    body, dt, n = _pass(al, se_run)
+    check(body == se_body, "10c: sharded-SA body == one device's")
+    rows = se["idx"].sa_ls.shape[0]
+    per = [_nbytes(t) for t in al.ssa.shards]
+    check(per == [-(-rows // MESH) * 4] * MESH,
+          "10c: each shard holds (N+1) padded / 4 rows of int32")
+    print(f"[10c] SA sharded: {rows} rows padded to {al.ssa.n_rows}, "
+          f"{per} B a shard (the copied SA: {_nbytes(sa)} B); "
+          f"body == one device's in {dt:.2f} s; launches {_launch_line(n)}")
+
+    # (d) PE on the forced wide layout with the SA sharded
+    al = Aligner(pidx, sh, device=mesh)
+    al.di = DeviceIndex.from_host(pidx, al.device, wide=True, sa_stub=True)
+    al.ssa = ShardedSA.from_host(pidx, al.mesh.devices, wide=True)
+    body, dt, n = _pass(al, pe_run)
+    check(body == pe_body, "10d: wide + sharded-SA PE body == one device's")
+    check(al.ssa.shards[0].dtype == torch.int64, "10d: the wide layout")
+    print(f"[10d] PE wide + SA sharded: body == one device's in {dt:.2f} s; "
+          f"{[_nbytes(t) for t in al.ssa.shards]} B a shard; launches "
+          f"{_launch_line(n)}")
+
+    # (e) SE with the sampled SA on every shard
+    al = Aligner(se["idx"], dataclasses.replace(opt, sa_sample_shift=5),
+                 device=mesh)
+    body, dt, n = _pass(al, se_run)
+    check(body == se_body, "10e: --sa-shift 5 body == one device's")
+    check(n["sa_sampled"] >= MESH, "10e: K5 launched on every shard")
+    print(f"[10e] --sa-shift 5 on {MESH} shards: body == one device's in "
+          f"{dt:.2f} s; launches {_launch_line(n)}")
+
+    # (h) two cards, where there are two
+    if n_cards >= 2:
+        al = Aligner(se["idx"], dataclasses.replace(opt, mesh_shape=(2,)),
+                     device=["cuda:0", "cuda:1"])
+        body, dt, n = _pass(al, se_run)
+        check(body == se_body, "10h: the body on cuda:0, cuda:1 == one "
+              "device's")
+        print(f"[10h] cuda:0, cuda:1: body == one device's in {dt:.2f} s")
+    else:
+        print("[10h] one card: the two-card leg does not run")
+
+    # (f), (g): the CLI
+    res = {k: _cli_result(c) for k, c in clis.items()}
+    for k in ("f mesh", "f one"):
+        check(res[k][2] == 0, f"10{k}: the CLI exits 0: {res[k][1][-2000:]}")
+    with open(os.path.join(GOLDEN_DIR, "se.sam")) as f:
+        golden = f.read()
+    check(_strip_pg(res["f mesh"][0]) == _strip_pg(res["f one"][0])
+          == golden, "10f: the mesh CLI's SAM == the one-device CLI's == "
+          "tests/golden/se.sam but @PG")
+    check(f"mesh of {MESH}: {', '.join(['cuda:0'] * MESH)}" in
+          res["f mesh"][1], "10f: the banner names the mesh")
+    print(f"[10f] `mem --preset v5e-4 --device {mesh_dev}` == `--batch "
+          f"{MESH_BATCH} --device cuda:0` == tests/golden/se.sam (but @PG)")
+    out, err, rc = res["g"]
+    if n_cards < MESH:
+        lines = [ln for ln in err.splitlines()
+                 if ln.startswith("tpu-bwa-torch mem:")]
+        check(rc == 1 and len(lines) == 1 and "Traceback" not in err,
+              f"10g: --device cuda for {MESH} shards on {n_cards} card(s) "
+              f"is refused in one line, exit 1 ({rc}: {err[-2000:]})")
+        print(f"[10g] {n_cards} card(s): exit 1, {lines[0]!r}")
+    else:
+        check(rc == 0 and _strip_pg(out) == golden,
+              "10g: --device cuda on the cards == 10f")
+        print(f"[10g] {n_cards} cards: --device cuda ran, == 10f")
+    print(f"[10] the device mesh in {time.monotonic() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1832,6 +2068,7 @@ def main() -> int:
     res["sa_sampled"] = [k5]
     k5_launches = phase_index_modes(se, pe_files)
     phase_serving(se)
+    phase_mesh(se, pe_files)
 
     check("jax" not in sys.modules, "the port ran without importing jax")
     check(not [m for m in sys.modules

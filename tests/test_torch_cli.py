@@ -103,3 +103,105 @@ def test_runtime_errors_stay_loud(files, monkeypatch):
     monkeypatch.setattr(pipeline, "align_fastq", refuse)
     with pytest.raises(RuntimeError, match="manifest refused"):
         tpubwa_torch.cli.main(["mem", "--device", "cpu", ref, good])
+
+
+def test_mesh_preset_on_cpu_equals_one_device(files, capsys):
+    """``--preset v5e-4 --device cpu``: four CPU shards, named in the
+    banner, and the one-device body."""
+    ref, good, _ = files
+    bodies = []
+    for argv in (["--device", "cpu"],
+                 ["--preset", "v5e-4", "--device", "cpu"]):
+        assert tpubwa_torch.cli.main(["mem", *argv, ref, good]) == 0
+        cap = capsys.readouterr()
+        bodies.append([ln for ln in cap.out.splitlines()
+                       if not ln.startswith("@")])
+    assert "mesh of 4: cpu, cpu, cpu, cpu (batch 32768" in cap.err
+    assert bodies[0] == bodies[1] and bodies[0][0].startswith("r0\t")
+
+
+@pytest.mark.parametrize("case", ["device-list", "shard-sa-without-mesh"])
+def test_mesh_refusals_are_one_line(files, case, capsys, monkeypatch):
+    """A device list of the wrong length, and ``shard_sa`` without a mesh
+    (no CLI option sets it: here through the options ``align_fastq``
+    builds), are one line and exit code 1; the second is the JAX
+    package's own message."""
+    import dataclasses
+
+    import tpubwa_torch.align.pipeline as pipeline
+
+    ref, good, _ = files
+    if case == "device-list":
+        argv = ["--preset", "v5e-4", "--device", "cpu,cpu,cpu"]
+        want = "the device list names 3 device(s) but the mesh has 4"
+    else:
+        from tpubwa.align.pipeline import Aligner as JaxAligner
+        from tpubwa.config import MemOptions as JaxOptions
+        from tpubwa.index.fmindex import FMIndex as JaxIndex
+
+        @dataclasses.dataclass
+        class ShardedOptions(pipeline.MemOptions):
+            shard_sa: bool = True
+
+        monkeypatch.setattr(pipeline, "MemOptions", ShardedOptions)
+        argv = ["--device", "cpu"]
+        with pytest.raises(ValueError) as e:
+            JaxAligner(JaxIndex.load(ref), JaxOptions(shard_sa=True))
+        want = str(e.value)
+    rc = tpubwa_torch.cli.main(["mem", *argv, ref, good])
+    err = capsys.readouterr().err
+    lines = [ln for ln in err.splitlines()
+             if ln.startswith("tpu-bwa-torch mem:")]
+    assert rc == 1 and "Traceback" not in err
+    assert lines == [f"tpu-bwa-torch mem: {want}"]
+
+
+def test_two_hosts_with_coordinator(files, tmp_path):
+    """Two ``--hosts 2 --coordinator 127.0.0.1:PORT`` processes join one
+    gloo group (each waits for the other) and their chunks concatenate to
+    the single-host body."""
+    import socket
+    import subprocess
+    import sys
+
+    from tpubwa_torch.utils import sim
+
+    ref, _, _ = files
+    idx = FMIndex.load(ref)
+    codes = np.random.default_rng(5).integers(0, 4, 4000).astype(np.uint8)
+    fq = str(tmp_path / "r.fq")
+    sim.write_fastq(fq, sim.simulate_reads(codes, idx.contigs, 24, seed=4))
+    want = io_body(["mem", "--device", "cpu", "--batch", "8", ref, fq])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tpubwa_torch.cli", "mem", "--device", "cpu",
+         "--batch", "8", "--hosts", "2", "--host-id", str(h), "--chunks",
+         str(tmp_path / "ck"), "--coordinator", f"127.0.0.1:{port}", ref,
+         fq], env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True) for h in (0, 1)]
+    try:
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], errs
+    chunks = sorted((tmp_path / "ck").glob("chunk_*.sam"))
+    assert len(chunks) == 3
+    assert "".join(c.read_text() for c in chunks) == want
+
+
+def io_body(argv) -> str:
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert tpubwa_torch.cli.main(argv) == 0
+    return "".join(ln for ln in buf.getvalue().splitlines(True)
+                   if not ln.startswith("@"))

@@ -8,7 +8,9 @@ and step rows) against ``_ga_rows_plain`` and
 ``global_align_cigar_batch``, exact on every field, and each wrapper's
 launch counter (K1, K1b and K4 also on the adversarial job sets of
 ``utils.sim``, with scores beyond 16 bits among them, K5 on its edge rows
-and with counts of live rows); and a ``-t 4`` SE run equal to ``-t 1``.  Needs a CUDA
+and with counts of live rows); a ``-t 4`` SE run equal to ``-t 1``; and a
+device mesh (two shards on one card, or a shard on each card) equal to
+one device, the SA copied or sharded.  Needs a CUDA
 card and nvcc (the kernels are compiled on first use); skipped where
 torch sees no GPU.  Imports neither jax nor the JAX package, so it runs on
 a machine without them:
@@ -617,3 +619,44 @@ def test_threads_se_matches_single_on_card(cuda, tmp_path):
                            batch_reads=32, threads=threads) == 0
         texts.append(out.getvalue())
     assert texts[0] == texts[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard_sa", [False, True], ids=["copied-sa",
+                                                         "sharded-sa"])
+@pytest.mark.parametrize("cards", ["one-card", "every-card"])
+def test_mesh_matches_single_on_card(cuda, tmp_path, cards, shard_sa):
+    """A mesh of two shards on ``cuda:0``, or one shard on each visible
+    card (skipped with fewer than two), SE and PE of the golden fixture
+    with the SA copied or sharded, writes the one-device SAM and launches
+    K2's first round once a shard and batch."""
+    import dataclasses
+    import io
+
+    from tpubwa_torch.align.pair import align_pe_fastq
+    from tpubwa_torch.align.pipeline import Aligner, run_se_pipeline
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.ops import smem_chain_cuda
+    from tpubwa_torch.utils.sim import golden_fixture
+
+    n_cards = torch.cuda.device_count()
+    if cards == "every-card" and n_cards < 2:
+        pytest.skip("needs two or more cards")
+    mesh = (["cuda:0"] * 2 if cards == "one-card"
+            else [f"cuda:{i}" for i in range(n_cards)])
+    ref, se_fq, fq1, fq2 = golden_fixture(str(tmp_path))
+    idx = FMIndex.load(ref)
+    opt = MemOptions(batch_reads=64)
+    texts = []
+    for device, o in (("cuda", opt), (mesh, dataclasses.replace(
+            opt, shard_sa=shard_sa))):
+        al = Aligner(idx, o, device=device)
+        n0 = smem_chain_cuda.smem_round1_core.launches
+        se, pe = io.StringIO(), io.StringIO()
+        run_se_pipeline(al, se_fq, se)
+        k2 = smem_chain_cuda.smem_round1_core.launches - n0
+        assert align_pe_fastq(al, fq1, fq2, pe) == 0
+        texts.append((se.getvalue(), k2, pe.getvalue()))
+    (se1, k1, pe1), (se2, k2, pe2) = texts
+    assert se1 == se2 and pe1 == pe2
+    assert k2 == len(mesh) * k1 > 0

@@ -5,8 +5,9 @@ fixture made by the port's own copies, leaves ``jax`` and every ``tpubwa``
 module out of ``sys.modules``; and no source of the port, nor
 ``chip_smoke.py``, imports ``tpubwa``.  Also the CLI's refusals: no silent CPU
 fallback for ``--device cuda`` without a card, the JAX CLI's checks of
-``--hosts``, and a clear error for what is outside the port (a device
-mesh, ``--coordinator``)."""
+``--hosts``, and a device mesh refused in one line where its devices do
+not match (a device list of the wrong length, or ``--device cuda`` for a
+mesh of four when torch sees no card)."""
 import os
 import re
 import subprocess
@@ -95,18 +96,24 @@ def test_port_sources_do_not_import_tpubwa():
     (["--hosts", "2"], "--hosts requires --chunks DIR"),
     (["--hosts", "2", "--host-id", "2", "--chunks", "c"],
      "--host-id must be in [0, --hosts)"),
-    (["--preset", "v5e-4"], "NotImplementedError: a device mesh"),
-    (["--coordinator", "localhost:1234"], "unrecognized arguments"),
-], ids=["hosts-without-chunks", "host-id-range", "mesh-preset",
-        "coordinator"])
+    (["--preset", "v5e-4", "--device", "cpu,cpu"],
+     "tpu-bwa-torch mem: the device list names 2 device(s) but the mesh "
+     "has 4"),
+    (["--preset", "v5e-4", "--device", "cuda"],
+     "tpu-bwa-torch mem: a mesh of 4 CUDA devices, but torch sees no CUDA "
+     "device"),
+], ids=["hosts-without-chunks", "host-id-range", "mesh-device-list",
+        "mesh-without-cards"])
 def test_cli_refuses_unported_paths(tmp_path, argv, err):
     """Invalid host splits are refused as the JAX CLI refuses them; a
-    device mesh and --coordinator (ROADMAP P9) are not ported."""
+    device mesh whose devices do not match is refused in one line."""
     import numpy as np
 
     from tpubwa.index.fmindex import FMIndex
     from tpubwa.io.fasta import Contig
 
+    if "cuda" in argv and torch_sees_cards(4):
+        pytest.skip("this machine has the cards: the mesh runs")
     codes = np.random.default_rng(1).integers(0, 4, 2000).astype(np.uint8)
     (tmp_path / "REF").write_text(">c1\n" + "".join("ACGT"[c] for c in codes)
                                   + "\n")
@@ -116,6 +123,14 @@ def test_cli_refuses_unported_paths(tmp_path, argv, err):
               "REF", "R"], tmp_path)
     assert p.returncode != 0
     assert err in p.stderr
+    if argv[0] == "--preset":
+        assert p.returncode == 1 and "Traceback" not in p.stderr
+
+
+def torch_sees_cards(n: int) -> bool:
+    import torch
+
+    return torch.cuda.is_available() and torch.cuda.device_count() >= n
 
 
 def test_cuda_device_without_card_raises():

@@ -12,13 +12,15 @@ Layout mirrors ``tpubwa``:
                         each loop of dependent steps is a hand-written
                         CUDA kernel with its plain version beside it
   tpubwa_torch.align  — flat extension driver, flat SAM, pairing, the Aligner
+  tpubwa_torch.parallel — the device mesh: a batch split over N devices
   tpubwa_torch.csrc   — CUDA C++ kernel sources, built by nvcc at first use
   tpubwa_torch.native — C++ host library sources, built by g++ at first use
   tpubwa_torch.index / io / utils / config — host code
   tpubwa_torch.cli    — ``tpu-bwa-torch index|mem``
 
-Ported so far: single-end and paired-end alignment and the serving modes
-(wide index, sampled SA, ``--chunks``, ``--hosts``, ``-t N``) on one device.
+Ported: single-end and paired-end alignment, the serving modes (wide
+index, sampled SA, ``--chunks``, ``--hosts``, ``-t N``), and the device
+mesh (reads split over N devices, the suffix array copied or sharded).
 """
 
 __version__ = "0.1.0"

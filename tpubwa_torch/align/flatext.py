@@ -6,6 +6,7 @@ calls and a few device waves (port of ``tpubwa.align.flatext``).
                               per chain seed
     -> device extend_jobs_* : gather q/t windows on device, band-doubling
                               DP (the extension kernel), one call per wave
+                              (on a device mesh, one per device a wave)
     -> native ext_finalize  : sequential containment replay -> regions
 """
 from __future__ import annotations
@@ -93,17 +94,42 @@ def _ext_kw(aligner) -> dict:
                 core=aligner.ext_core)
 
 
+def _on_mesh(aligner, codes_on: dict, n: int, fn) -> list:
+    """Run ``fn(sl, di, codes, lens, mat, put)`` on each mesh device's
+    contiguous part ``sl`` of n lanes (an empty part runs nothing);
+    returns [(sl, result)] in lane order, nothing read back yet."""
+    out = []
+    for d, (lo, hi) in enumerate(aligner.mesh.split(n)):
+        if hi > lo:
+            dev = aligner.mesh[d]
+            codes, lens = codes_on[dev]
+            out.append((slice(lo, hi), fn(
+                slice(lo, hi), aligner.index_on(dev)[0], codes, lens,
+                aligner.mat_on(dev),
+                lambda a, dev=dev: aligner._put(a, dev))))
+    return out
+
+
 def run_waves(aligner, codes_dev, lens_dev, jobs: dict, n_jobs: int,
-              lens_host: np.ndarray) -> np.ndarray:
+              lens_host: np.ndarray, codes_on: dict | None = None
+              ) -> np.ndarray:
     """Run the extension programs over the job list; returns int32
     [n_jobs, 14] results in job order.
 
     The LEFT and RIGHT halves run as separate wave streams, each sorted by
     its own effective depth (~min(tlen, qlen + w)), so a wave holds lanes
     of similar depth.  The right stream seeds from the left stream's
-    score0 (bwa's mem_chain2aln order)."""
+    score0 (bwa's mem_chain2aln order).
+
+    On a device mesh each wave's lanes are split into contiguous parts,
+    one a device, joined again in lane order (a job's result depends on
+    neither its wave nor its part).  ``codes_on`` holds the batch on each
+    distinct device (``Aligner.batch_on``; copied from ``codes_dev`` when
+    absent)."""
+    if codes_on is None:
+        codes_on = aligner.batch_on(codes_dev, lens_dev)
     if n_jobs <= 2 * MIN_WAVE:
-        return _run_waves_fused(aligner, codes_dev, lens_dev, jobs, n_jobs)
+        return _run_waves_fused(aligner, codes_on, jobs, n_jobs)
 
     opt = aligner.opt
     w0 = opt.w
@@ -116,7 +142,6 @@ def run_waves(aligner, codes_dev, lens_dev, jobs: dict, n_jobs: int,
     q_r = np.minimum(np.asarray(lens_host)[jb["read"]] - qb - sl, Q_PAD)
     ord_l = np.argsort(np.minimum(d_l, q_l + w0 + 1), kind="stable")
     ord_r = np.argsort(np.minimum(d_r, q_r + w0 + 1), kind="stable")
-    put = aligner._put
     kw = _ext_kw(aligner)
 
     def waves_of(order, fields, fn):
@@ -124,16 +149,19 @@ def run_waves(aligner, codes_dev, lens_dev, jobs: dict, n_jobs: int,
         res = []
         for j0 in range(0, n_jobs, MAX_WAVE):
             rows = order[j0:j0 + MAX_WAVE]
-            res.append((rows, fn([put(f[rows]) for f in fields])))
+            res += [(rows[sl], r) for sl, r in _on_mesh(
+                aligner, codes_on, rows.size,
+                lambda sl, di, codes, lens, mat, put, rows=rows: fn(
+                    di, codes, lens, [put(f[rows[sl]]) for f in fields],
+                    mat))]
         return [(rows, r.cpu().numpy()) for rows, r in res]
 
     left8 = np.empty((n_jobs, 8), np.int32)
     for rows, r in waves_of(
             ord_l, [jb["read"], jb["qbeg"], jb["rbeg"], jb["rmax0"],
                     jb["h0"]],
-            lambda a: extend_jobs_left(aligner.di, codes_dev, lens_dev, *a,
-                                       aligner.mat_dev,
-                                       pen_clip5=opt.pen_clip5, **kw)):
+            lambda di, codes, lens, a, mat: extend_jobs_left(
+                di, codes, lens, *a, mat, pen_clip5=opt.pen_clip5, **kw)):
         left8[rows] = r.T
     score0 = left8[:, 7].copy()
 
@@ -143,38 +171,32 @@ def run_waves(aligner, codes_dev, lens_dev, jobs: dict, n_jobs: int,
     for rows, r in waves_of(
             ord_r, [jb["read"], jb["qbeg"], jb["slen"], jb["rbeg"],
                     jb["rmax1"], score0],
-            lambda a: extend_jobs_right(aligner.di, codes_dev, lens_dev, *a,
-                                        aligner.mat_dev,
-                                        pen_clip3=opt.pen_clip3, **kw)):
+            lambda di, codes, lens, a, mat: extend_jobs_right(
+                di, codes, lens, *a, mat, pen_clip3=opt.pen_clip3, **kw)):
         out[rows, 6:12] = r.T[:, 0:6]
         out[rows, 13] = r.T[:, 6]         # aw1
     return out
 
 
-def _run_waves_fused(aligner, codes_dev, lens_dev, jobs: dict,
+def _run_waves_fused(aligner, codes_on: dict, jobs: dict,
                      n_jobs: int) -> np.ndarray:
     """Whole-seed extension (both halves in one program) per wave, for
     short job lists."""
+    opt = aligner.opt
+    kw = _ext_kw(aligner)
     out = np.empty((max(n_jobs, 1), 14), np.int32)
     for j0 in range(0, n_jobs, MAX_WAVE):
-        sl = slice(j0, min(j0 + MAX_WAVE, n_jobs))
-        res = _call_extend(aligner, codes_dev, lens_dev,
-                           *(jobs[k][sl] for k in ("read", "qbeg", "slen",
-                                                   "rbeg", "rmax0", "rmax1",
-                                                   "h0")))
-        out[sl] = res.cpu().numpy().T
+        wave = {k: jobs[k][j0:min(j0 + MAX_WAVE, n_jobs)]
+                for k in ("read", "qbeg", "slen", "rbeg", "rmax0", "rmax1",
+                          "h0")}
+        parts = _on_mesh(
+            aligner, codes_on, wave["read"].size,
+            lambda sl, di, codes, lens, mat, put: extend_jobs(
+                di, codes, lens, *(put(v[sl]) for v in wave.values()), mat,
+                pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3, **kw))
+        for sl, res in parts:
+            out[j0 + sl.start:j0 + sl.stop] = res.cpu().numpy().T
     return out
-
-
-def _call_extend(aligner, codes_dev, lens_dev, rd, qbeg, slen, rbeg, rmax0,
-                 rmax1, h0):
-    opt = aligner.opt
-    put = aligner._put
-    return extend_jobs(
-        aligner.di, codes_dev, lens_dev, put(rd), put(qbeg), put(slen),
-        put(rbeg), put(rmax0), put(rmax1), put(h0), aligner.mat_dev,
-        pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3,
-        **_ext_kw(aligner))
 
 
 def finalize_fields(handle, results: np.ndarray, n_reads: int,
@@ -234,7 +256,8 @@ def finalize_regs(handle, results: np.ndarray, n_reads: int,
 
 
 def run_phased(aligner, codes_dev, lens_dev, handle, jobs: dict,
-               n_jobs: int, lens_host: np.ndarray) -> np.ndarray:
+               n_jobs: int, lens_host: np.ndarray,
+               codes_on: dict | None = None) -> np.ndarray:
     """Phased extension rounds — bwa's sequential seed-skip recovered for
     batched device waves.
 
@@ -242,8 +265,11 @@ def run_phased(aligner, codes_dev, lens_dev, handle, jobs: dict,
     ext_phase1); the native replay (ext_missing) then re-walks the reads
     with the results so far and returns exactly the jobs a further round
     must run; ext_finalize's sequential replay never reads a slot that was
-    not run.  Output is identical to running every job."""
+    not run.  Output is identical to running every job.  ``codes_on`` is
+    ``run_waves``'s, made once here when absent."""
     lib = load_native()
+    if codes_on is None:
+        codes_on = aligner.batch_on(codes_dev, lens_dev)
 
     results = np.zeros((max(n_jobs, 1), 14), np.int32)
     have = np.zeros(max(n_jobs, 1), np.uint8)
@@ -254,7 +280,7 @@ def run_phased(aligner, codes_dev, lens_dev, handle, jobs: dict,
         sub = {k: np.ascontiguousarray(v[:n_jobs][run])
                for k, v in jobs.items()}
         results[run] = run_waves(aligner, codes_dev, lens_dev, sub, run.size,
-                                 lens_host=lens_host)
+                                 lens_host=lens_host, codes_on=codes_on)
         have[run] = 1
         n_miss = lib.ext_missing(
             handle, results.ctypes.data_as(_I32P), have.ctypes.data_as(_U8P),

@@ -6,7 +6,9 @@ model per orientation (FF/FR/RF/RR), mem_pair best-pair selection with
 the erfc insert-size log-likelihood term, and mem_matesw mate rescue —
 batched: per-pair rescue generators yield local-SW jobs that
 ``run_matesw_rounds`` runs through ``ops.localsw_cuda.localsw_core`` in
-lockstep rounds on the aligner's device.
+lockstep rounds on the aligner's device.  On a device mesh both ends'
+seeding and extension waves are split over the shards; mate rescue and
+the SAM's CIGAR program run on the mesh's first device.
 
 The host helpers are carried over from the JAX package (its module
 imports jax through ``tpubwa.align.finalize``), changed only in their

@@ -4,23 +4,27 @@ device extension waves -> native finalize -> flat SAM; paired ends add
 pairing and mate rescue (``align/pair.py``).
 
 Phase timers keep the reference's names (SMEM / SAL / CHAIN / BSW / SAM).
-Everything on the device runs on the Aligner's explicit ``device``; the
-native host library (``tpubwa_torch/native``) is required.
+Everything on the device runs on the Aligner's explicit ``device``, one
+device or a mesh of them (``parallel/mesh.py``); the native host library
+(``tpubwa_torch/native``) is required.
 
-Serving modes: a wide (>= 2^31) index, the sampled suffix array
-(``opt.sa_sample_shift``), ``--chunks`` resume, ``--hosts`` sharding and
-the ``-t N`` ordered worker pool.
+Serving modes: a device mesh (``opt.mesh_shape``, the v5e-4/v5e-16
+presets) with the suffix array copied or sharded (``opt.shard_sa``), a
+wide (>= 2^31) index, the sampled suffix array (``opt.sa_sample_shift``),
+``--chunks`` resume, ``--hosts`` sharding and the ``-t N`` ordered worker
+pool.
 """
 from __future__ import annotations
 
 import sys
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 import tpubwa_torch
-from tpubwa_torch.align import flatext, flatsam
+from tpubwa_torch.align import finalize, flatext, flatsam
 from tpubwa_torch.align.cigar_batch import GABatchExecutor
 from tpubwa_torch.config import MemOptions
 from tpubwa_torch.index.fmindex import FMIndex
@@ -30,26 +34,12 @@ from tpubwa_torch.native import load_native
 from tpubwa_torch.ops import (extend_cuda, global_align_cuda, localsw_cuda,
                               sa_sampled_cuda, smem_chain_cuda)
 from tpubwa_torch.ops.extend_cuda import extend_core, extend_core_b
-from tpubwa_torch.ops.fm import DeviceIndex, build_sampled_sa
-from tpubwa_torch.ops.seeds import seed_rows
-from tpubwa_torch.ops.smem_chain import collect_smems_chain
+from tpubwa_torch.ops.fm import DeviceIndex, ShardedSA, build_sampled_sa
+from tpubwa_torch.ops.seeds import seed_rows_mesh
+from tpubwa_torch.ops.smem_chain import collect_smems_mesh
+from tpubwa_torch.parallel.mesh import make_mesh, resolve_device  # noqa: F401
+from tpubwa_torch.utils.rounds import drive_rounds
 from tpubwa_torch.utils.timers import PhaseTimers
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tpubwa_torch yet (ROADMAP.md queue 1, "
-        f"item {item}); the JAX package tpubwa runs it")
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; a CUDA device must be visible (there is
-    no silent fallback to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but torch sees no "
-                           "CUDA device")
-    return dev
 
 
 # the extension kernel per layout: "t" is K1 (a group of lanes per job,
@@ -59,10 +49,33 @@ EXT_CORES = {"t": extend_core, "b": extend_core_b}
 _EXT_SOURCES = {"t": "extend", "b": "extend_b"}
 
 
+class SeedHandle(NamedTuple):
+    """A batch's dispatched seeding (``Aligner.seed_batch_dispatch``)."""
+
+    seeds: list         # CompactSeeds of each shard that has reads
+    smem_ovf: list      # its SMEM buffer overflow flags [B_d]
+    codes_dev: torch.Tensor  # the batch's codes (int32) on the first device
+    lens_dev: torch.Tensor
+    codes_on: dict      # device -> (codes, lens) of the whole batch
+    starts: list        # the first read of each shard that has reads
+
+
 class Aligner:
     """Holds the loaded index (host + device) and aligns read batches on
-    one torch device.  ``ext_layout`` picks the extension kernel
-    (``EXT_CORES``); the output does not depend on it.
+    one torch device or on a device mesh.  ``ext_layout`` picks the
+    extension kernel (``EXT_CORES``); the output does not depend on it.
+
+    ``device`` is one device, or a sequence of devices (or a
+    comma-separated string) that is the mesh as given; with
+    ``opt.mesh_shape`` set, a single ``"cpu"`` or ``"cuda"`` names N
+    devices (``parallel.mesh.make_mesh``).  On a mesh each read batch is
+    split into N contiguous slices: seeding (K2, and K5 under a sampled
+    SA) and the extension waves (K1 or K1b) run on every shard; the host
+    phases, the CIGAR program (K3) and mate rescue (K4) see the whole
+    batch on the mesh's first device, where ``_put`` puts arrays.  The
+    index is copied once to each distinct device (``self.di`` is the
+    first device's copy); ``opt.shard_sa`` splits the suffix array over
+    the mesh instead (``self.ssa``).
 
     A wide index (seq_len + 1 >= 2^31) gets the int64 device layout.
     ``opt.sa_sample_shift = S`` keeps 1/2^S of the suffix array on the
@@ -77,79 +90,144 @@ class Aligner:
                              f"{sorted(EXT_CORES)}")
         self.idx = idx
         self.opt = opt or MemOptions()
-        if self.opt.mesh_shape:
-            raise _not_ported("a device mesh (mesh_shape)", "P9")
         if self.opt.sa_sample_shift and self.opt.shard_sa:
             raise ValueError("sa_sample_shift and shard_sa are exclusive "
                              "SA serving modes")
-        if self.opt.shard_sa:
-            raise _not_ported("the sharded suffix array (shard_sa)", "P9")
-        self.device = resolve_device(device)
+        self.mesh = make_mesh(int(np.prod(self.opt.mesh_shape))
+                              if self.opt.mesh_shape else None, device)
+        if self.opt.shard_sa and len(self.mesh) == 1:
+            raise ValueError("shard_sa requires a device mesh "
+                             "(set opt.mesh_shape or pass mesh=)")
+        self.device = self.mesh[0]
         load_native()                 # fail now, not mid-batch
         self.mat = self.opt.score_matrix()
         self.contig_offsets = np.array([c.offset for c in idx.contigs],
                                        dtype=np.int64)
-        # under a sampled SA the full-resolution device SA is never built
-        self.di = DeviceIndex.from_host(
-            idx, self.device, sa_stub=bool(self.opt.sa_sample_shift))
-        self.ss = None
-        if self.opt.sa_sample_shift:
-            self.ss = build_sampled_sa(
-                None, self.opt.sa_sample_shift,
-                self.di.cp.dtype == torch.int64, idx=idx, device=self.device)
+        wide = idx.seq_len + 1 >= 1 << 31
+        shift = self.opt.sa_sample_shift
+        # one copy of the index a distinct device; under a sampled or a
+        # sharded SA the full-resolution SA is not copied
+        copies = {}
+        for dev in self.mesh.distinct:
+            di = DeviceIndex.from_host(idx, dev, wide=wide,
+                                       sa_stub=bool(shift) or
+                                       self.opt.shard_sa)
+            ss = (build_sampled_sa(None, shift, wide, idx=idx, device=dev)
+                  if shift else None)
+            copies[dev] = (di, ss)
+        self.di, self.ss = copies.pop(self.device)
+        self._copies = copies
+        self.ssa = (ShardedSA.from_host(idx, self.mesh.devices, wide)
+                    if self.opt.shard_sa else None)
         self.ext_core = EXT_CORES[ext_layout]
         self.n_overflow = 0  # reads whose SMEM/seed buffers overflowed
         self._ovf_lock = threading.Lock()  # -t workers share this Aligner
-        if self.device.type == "cuda":
+        # the kernels are one library a source for every card
+        if any(dev.type == "cuda" for dev in self.mesh.distinct):
             extend_cuda.build(_EXT_SOURCES[ext_layout])
             localsw_cuda.build()
             smem_chain_cuda.build()
             global_align_cuda.build()
-            if self.opt.sa_sample_shift:
+            if shift:
                 sa_sampled_cuda.build()
-        self.mat_dev = self._put(self.mat)
+        self._mats = {dev: self._put(self.mat, dev)
+                      for dev in self.mesh.distinct}
+        self.mat_dev = self._mats[self.device]
         self.ga_exec = GABatchExecutor(self.opt, put=self._put)
         self.timers = PhaseTimers()
 
-    def _put(self, arr) -> torch.Tensor:
-        """Host array -> tensor on the aligner's device."""
-        return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
+    def _put(self, arr, device=None) -> torch.Tensor:
+        """Host array -> tensor on `device` (default: the first device of
+        the mesh)."""
+        return torch.as_tensor(np.ascontiguousarray(arr),
+                               device=self.device if device is None
+                               else device)
+
+    def index_on(self, dev) -> tuple:
+        """(DeviceIndex, SampledSA or None) on mesh device `dev`."""
+        return (self.di, self.ss) if dev == self.device else \
+            self._copies[dev]
+
+    def mat_on(self, dev) -> torch.Tensor:
+        """The scoring matrix on mesh device `dev`."""
+        return self._mats[dev]
+
+    def batch_on(self, codes_dev: torch.Tensor,
+                 lens_dev: torch.Tensor) -> dict:
+        """{device: (codes, lens)}: a batch on the first device, copied to
+        each other distinct device of the mesh."""
+        return {dev: (codes_dev.to(dev, non_blocking=True),
+                      lens_dev.to(dev, non_blocking=True))
+                for dev in self.mesh.distinct}
 
     # ------------------------------------------------ device seeding ----
 
-    def seed_batch_dispatch(self, codes: np.ndarray, lens: np.ndarray):
+    def seed_batch_dispatch(self, codes: np.ndarray,
+                            lens: np.ndarray) -> SeedHandle:
         """Run device seeding (SMEMs + seed rows) for a read batch; returns
-        a handle for seed_batch_finish."""
+        a handle for seed_batch_finish.  On a mesh every shard's work is
+        issued before anything is read back but the round-2 candidate
+        counts; a shard without reads launches nothing."""
         opt = self.opt
         with self.timers.phase("SMEM"):
-            codes_dev = self._put(np.asarray(codes, np.int32))
-            lens_dev = self._put(np.asarray(lens, np.int32))
-            sm = collect_smems_chain(
-                self.di, codes_dev, lens_dev,
+            codes32 = np.asarray(codes, np.int32)
+            lens32 = np.asarray(lens, np.int32)
+            codes_on = {dev: (self._put(codes32, dev), self._put(lens32, dev))
+                        for dev in self.mesh.distinct}
+            # the reads before the batch's padding (rows of length 0 at
+            # its end) are split evenly; the padding rides on the last
+            # shard, so the batch's row cap counts it as one device does
+            n = int(np.flatnonzero(lens32)[-1]) + 1 if lens32.any() else 0
+            parts = self.mesh.split(n)
+            parts[-1] = (parts[-1][0], len(lens32))
+            shards = [(self.mesh[d], lo, hi)
+                      for d, (lo, hi) in enumerate(parts) if hi > lo]
+            idxs = [self.index_on(dev) for dev, _, _ in shards]
+            sms = collect_smems_mesh(
+                [di for di, _ in idxs],
+                [codes_on[dev][0][lo:hi] for dev, lo, hi in shards],
+                [codes_on[dev][1][lo:hi] for dev, lo, hi in shards],
                 min_seed_len=opt.min_seed_len, split_len=opt.split_len,
                 split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
                 out_cap=opt.max_smems_per_read)
-            cs = seed_rows(self.di, sm, max_occ=opt.max_occ,
-                           per_read_cap=opt.max_seeds_per_read, ss=self.ss,
-                           sa_shift=opt.sa_sample_shift)
-        return cs, sm.overflow, codes_dev, lens_dev
+            seeds = seed_rows_mesh(
+                [di for di, _ in idxs], sms, max_occ=opt.max_occ,
+                per_read_cap=opt.max_seeds_per_read,
+                sss=[ss for _, ss in idxs], sa_shift=opt.sa_sample_shift,
+                ssa=self.ssa)
+        return SeedHandle(seeds, [sm.overflow for sm in sms],
+                          *codes_on[self.device], codes_on,
+                          [lo for _, lo, _ in shards])
 
-    def seed_batch_finish(self, handle):
+    def seed_batch_finish(self, handle: SeedHandle):
         """Download a seeding handle's results: (seed_rows [n, 4] =
-        (read_id, rbeg, qbeg, len), l_rep [B])."""
-        cs, sm_ovf = handle[0], handle[1]
+        (read_id, rbeg, qbeg, len), l_rep [B]), the shards' rows merged
+        in shard order with read ids of the batch."""
         with self.timers.phase("SAL"):
-            n = int(cs.n)
-            l_rep = cs.l_rep.cpu().numpy()
-            n_ovf = int((sm_ovf | cs.overflow).sum())
+            ns = [int(cs.n) for cs in handle.seeds]
+            l_rep = np.concatenate(
+                [cs.l_rep.cpu().numpy() for cs in handle.seeds]
+                + [np.zeros(0, np.int32)])
+            n_ovf = sum(int((o | cs.overflow).sum())
+                        for o, cs in zip(handle.smem_ovf, handle.seeds))
             if n_ovf:
                 with self._ovf_lock:
                     self.n_overflow += n_ovf
                 print(f"[tpu-bwa-torch] warning: {n_ovf} read(s) exceeded "
                       "SMEM/seed buffer caps; their seed lists were "
                       "truncated", file=sys.stderr)
-            rows = cs.packed[:n].cpu().numpy()
+            parts = []
+            for cs, n, lo in zip(handle.seeds, ns, handle.starts):
+                rows = cs.packed[:n].cpu().numpy()
+                rows[:, 0] += lo
+                parts.append(rows)
+            rows = (np.concatenate(parts) if parts
+                    else np.zeros((0, 4), np.int32))
         return rows, l_rep
+
+    def seed_batch(self, codes: np.ndarray, lens: np.ndarray):
+        """Synchronous dispatch + finish."""
+        return self.seed_batch_finish(self.seed_batch_dispatch(codes, lens))
 
     # ------------------------------------------ flat extension path ----
 
@@ -160,7 +238,6 @@ class Aligner:
         if seed_handle is None:
             seed_handle = self.seed_batch_dispatch(batch.codes, batch.lens)
         seed_rows_h, l_rep = self.seed_batch_finish(seed_handle)
-        codes_dev, lens_dev = seed_handle[2], seed_handle[3]
 
         B = batch.n
         with self.timers.phase("CHAIN"):
@@ -171,8 +248,10 @@ class Aligner:
                 self.opt, self.idx.l_pac, self.contig_offsets, seed_rows_h,
                 bounds, skip, batch.lens, l_rep[:B])
         with self.timers.phase("BSW"):
-            results = flatext.run_phased(self, codes_dev, lens_dev, handle,
-                                         jobs, n_jobs, lens_host=batch.lens)
+            results = flatext.run_phased(
+                self, seed_handle.codes_dev, seed_handle.lens_dev, handle,
+                jobs, n_jobs, lens_host=batch.lens,
+                codes_on=seed_handle.codes_on)
             return flatext.finalize_fields(handle, results, B, n_jobs)
 
     def regions_batch(self, batch, seed_handle=None):
@@ -191,7 +270,28 @@ class Aligner:
         fields, fbounds = self._regions_flat(batch, seed_handle=seed_handle)
         with self.timers.phase("SAM"):
             return flatsam.se_text_batch(self, batch, read_id0, fields,
-                                         fbounds, codes_dev=seed_handle[2])
+                                         fbounds,
+                                         codes_dev=seed_handle.codes_dev)
+
+    def _se_records_from_regs(self, batch, read_id0: int, regs):
+        """SAM records of every read from its regions: the generator tier
+        (``finalize.se_records_g``), all reads in lockstep rounds whose
+        CIGAR fills run as device batches (``self.ga_exec``)."""
+        with self.timers.phase("SAM"):
+            gens = [
+                finalize.se_records_g(
+                    self.opt, self.idx, batch.names[b], batch.seqs[b],
+                    batch.quals[b], batch.codes[b, : batch.lens[b]],
+                    regs[b], read_id0 + b)
+                for b in range(batch.n)
+            ]
+            return drive_rounds(gens, self.ga_exec)
+
+    def align_se_batch(self, batch, read_id0: int, seed_handle=None):
+        """Align a ReadBatch single-end; returns list[list[SamRecord]]
+        (their lines are ``align_se_text``'s)."""
+        regs = self.regions_batch(batch, seed_handle=seed_handle)
+        return self._se_records_from_regs(batch, read_id0, regs)
 
 
 def align_fastq(ref: str, fq1: str, fq2: str | None, out, *, device="cuda",
@@ -205,6 +305,9 @@ def align_fastq(ref: str, fq1: str, fq2: str | None, out, *, device="cuda",
     reference on `device`, write SAM to `out`.  Returns 0, or 1 when the
     index is missing or paired FASTQs differ in read count.
 
+    `device` is one device or a device list (a sequence, or a
+    comma-separated string); a preset with a mesh (v5e-4, v5e-16) takes
+    its mesh size from the preset, and a list must match it.
     ``threads`` workers run the ordered pool (1: the dispatch-ahead
     driver); ``chunk_dir`` persists each batch as a chunk file and resumes
     from the ones present; ``shard=(host_id, n_hosts)`` aligns only this
@@ -226,9 +329,12 @@ def align_fastq(ref: str, fq1: str, fq2: str | None, out, *, device="cuda",
         opt.sa_sample_shift = int(sa_sample_shift)
     idx = FMIndex.load(ref)
     aligner = Aligner(idx, opt, device=device, ext_layout=ext_layout)
-    print(f"[tpu-bwa-torch] device {aligner.device} "
-          f"(batch {opt.batch_reads}, extension layout {ext_layout})",
-          file=sys.stderr)
+    devs = aligner.mesh.devices
+    where = (f"device {devs[0]}" if len(devs) == 1 else
+             f"mesh of {len(devs)}: {', '.join(map(str, devs))}"
+             + (", SA sharded" if opt.shard_sa else ""))
+    print(f"[tpu-bwa-torch] {where} (batch {opt.batch_reads}, extension "
+          f"layout {ext_layout})", file=sys.stderr)
     out.write(sam_header(idx.contigs, cmdline, tpubwa_torch.__version__))
     manifest = _run_manifest(ref, fq1, fq2, opt) if chunk_dir else None
     kw = dict(workers=threads, chunk_dir=chunk_dir, manifest=manifest,

@@ -1,21 +1,27 @@
 """Command-line interface of the PyTorch port: ``tpu-bwa-torch index|mem``.
 
   tpu-bwa-torch index <ref.fa>
-  tpu-bwa-torch mem [--device cuda] [--ext-layout t|b] [-k minSeedLen]
-                    [-t N] [--batch B] [--sa-shift S] [--chunks DIR]
-                    [--hosts N --host-id H] [--profile DIR]
-                    <ref.fa> reads.fq [mates.fq] > out.sam
+  tpu-bwa-torch mem [--device cuda|DEV,DEV,...] [--preset P]
+                    [--ext-layout t|b] [-k minSeedLen] [-t N] [--batch B]
+                    [--sa-shift S] [--chunks DIR]
+                    [--hosts N --host-id H [--coordinator ADDR:PORT]]
+                    [--profile DIR] <ref.fa> reads.fq [mates.fq] > out.sam
 
 ``mem`` runs on ``--device`` (default ``cuda``; it fails when no GPU is
-visible — pass ``--device cpu`` to run on the CPU).  A second reads file
-aligns paired ends.  ``--ext-layout`` picks the extension kernel: ``t``
+visible — pass ``--device cpu`` to run on the CPU).  A device mesh splits
+each read batch over several devices: ``--preset v5e-4`` (4) or
+``v5e-16`` (16) on ``--device cuda`` takes ``cuda:0`` .. ``cuda:N-1`` and
+fails when fewer cards are visible, on ``--device cpu`` N CPU shards; a
+comma-separated ``--device`` list is the mesh as given (it may name one
+card several times) and must match the preset's size.  A second reads
+file aligns paired ends.  ``--ext-layout`` picks the extension kernel: ``t``
 (a group of lanes per job, the default) or ``b`` (one warp per job); the
 output is the same.  The index format on disk is the JAX package's
 (an index written by either package loads in the other); an index of
 2^31 characters or more loads in the wide (int64) layout.  None of the
-serving options changes the SAM.
-Not ported: device meshes (the v5e-4/v5e-16 presets) and the JAX CLI's
-``--coordinator`` (multi-process meshes).
+serving options changes the SAM.  ``--coordinator`` joins the ``--hosts``
+processes in a ``torch.distributed`` gloo group, as the JAX CLI joins
+them with ``jax.distributed``.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ def cmd_index(args) -> int:
 
 def cmd_mem(args) -> int:
     from tpubwa_torch.align.pipeline import align_fastq
+    from tpubwa_torch.parallel.mesh import DevicesUnavailable
 
     for f in [args.ref, args.reads1] + ([args.reads2] if args.reads2
                                          else []):
@@ -64,21 +71,44 @@ def cmd_mem(args) -> int:
                   file=sys.stderr)
             return 1
         shard = (args.host_id, args.hosts)
+    # (a namespace a caller builds by hand may lack --coordinator)
+    group = _join_hosts(getattr(args, "coordinator", None), args.hosts,
+                        args.host_id)
     kw = dict(
         ref=args.ref, fq1=args.reads1, fq2=args.reads2, out=sys.stdout,
         device=args.device, min_seed_len=args.k, threads=args.t,
         batch_reads=args.batch, preset=args.preset, chunk_dir=args.chunks,
         sa_sample_shift=args.sa_shift, cmdline=" ".join(sys.argv),
         shard=shard, ext_layout=args.ext_layout)
-    # a malformed input or option is one line and exit code 1; a refused
-    # manifest, a missing GPU or a failed build (RuntimeError) stays loud
+    # a malformed input or option, and a mesh larger than the visible
+    # cards, is one line and exit code 1; a refused manifest, a missing
+    # GPU or a failed build (RuntimeError) stays loud
     try:
         if args.profile:
             return _profiled(args.profile, args.device, kw)
         return align_fastq(**kw)
-    except ValueError as e:
+    except (ValueError, DevicesUnavailable) as e:
         print(f"tpu-bwa-torch mem: {e}", file=sys.stderr)
         return 1
+    finally:
+        if group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _join_hosts(coordinator: str | None, hosts: int | None,
+                host_id: int) -> bool:
+    """With ``--hosts`` and ``--coordinator ADDR:PORT``, join this host
+    process to the gloo process group of the run; returns whether it
+    joined."""
+    if not (hosts and coordinator):
+        return False
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
+                            world_size=hosts, rank=host_id)
+    return True
 
 
 def _profiled(trace_dir: str, device: str, kw: dict) -> int:
@@ -88,10 +118,11 @@ def _profiled(trace_dir: str, device: str, kw: dict) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tpubwa_torch.align.pipeline import align_fastq, resolve_device
+    from tpubwa_torch.align.pipeline import align_fastq
+    from tpubwa_torch.parallel.mesh import make_mesh
 
     acts = [ProfilerActivity.CPU]
-    if resolve_device(device).type == "cuda":
+    if any(d.type == "cuda" for d in make_mesh(None, device).devices):
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     with profile(activities=acts) as prof:
@@ -116,7 +147,9 @@ def main(argv: list[str] | None = None) -> int:
 
     pm = sub.add_parser("mem", help="align FASTQ reads, write SAM to stdout")
     pm.add_argument("--device", default="cuda",
-                    help="torch device to align on (default: cuda)")
+                    help="torch device to align on (default: cuda), or a "
+                         "comma-separated list of devices: a device mesh "
+                         "that splits each read batch")
     pm.add_argument("--ext-layout", default="t", choices=["t", "b"],
                     help="extension kernel: t = a group of lanes per job "
                          "(default), b = a warp per job; the output is the "
@@ -129,8 +162,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="reads per device batch")
     pm.add_argument("--preset", default=None,
                     choices=["cpu-dev", "v5e-1", "v5e-4", "v5e-16"],
-                    help="batch-size preset (presets with a device mesh, "
-                         "v5e-4 and v5e-16, are not ported)")
+                    help="batch-size preset; v5e-4 and v5e-16 also set a "
+                         "device mesh of 4 and 16 devices")
     pm.add_argument("--chunks", default=None, metavar="DIR",
                     help="persist each batch's SAM as an idempotent chunk "
                          "file in DIR; re-running resumes from completed "
@@ -147,10 +180,12 @@ def main(argv: list[str] | None = None) -> int:
                          "processes; each aligns its share of the read "
                          "batches into the shared --chunks DIR (cat "
                          "DIR/chunk_*.sam reproduces the single-host SAM "
-                         "body).  Multi-process device meshes "
-                         "(--coordinator) are not ported")
+                         "body)")
     pm.add_argument("--host-id", type=int, default=0, metavar="H",
                     help="this process's id in [0, --hosts)")
+    pm.add_argument("--coordinator", default=None, metavar="ADDR:PORT",
+                    help="with --hosts: join the host processes in a "
+                         "torch.distributed gloo group at tcp://ADDR:PORT")
     pm.add_argument("ref")
     pm.add_argument("reads1")
     pm.add_argument("reads2", nargs="?", default=None,

@@ -22,6 +22,11 @@ The sampled suffix array (``SampledSA``, ``build_sampled_sa``,
 does not fit: it keeps the SA positions that are multiples of 2^shift and
 LF-walks back to one of them.  ``sa_lookup_sampled`` here is the plain
 version; ``ops.sa_sampled_cuda`` holds its CUDA kernel.
+
+The sharded suffix array (``ShardedSA``, ``sa_lookup_sharded``) is the
+mode of a device mesh: the SA is split over the mesh's devices and each
+lookup asks every shard.  It is plain torch ops and copies between
+devices.
 """
 from __future__ import annotations
 
@@ -168,6 +173,79 @@ def set_intv(di: DeviceIndex, c: torch.Tensor) -> BiInterval:
 def sa_lookup(di: DeviceIndex, r: torch.Tensor) -> torch.Tensor:
     """Suffix-array positions for rows r."""
     return di.sa[r]
+
+
+# ------------------------------------------------------- sharded SA ----
+#
+# The serving mode for a suffix array too big for one card (GRCh38's int64
+# SA is ~49.6 GB): the SA is split over the devices of a mesh, and every
+# lookup asks all of them.
+
+
+class ShardedSA(NamedTuple):
+    """The suffix array padded with zeros to a multiple of N and split
+    into N contiguous pieces of ``rows`` rows, piece d on device d of the
+    mesh (the dtypes of ``DeviceIndex.sa``)."""
+
+    shards: tuple
+    rows: int
+
+    @property
+    def n_rows(self) -> int:
+        """Rows of the padded SA."""
+        return self.rows * len(self.shards)
+
+    @classmethod
+    def from_host(cls, idx: FMIndex, devices, wide: bool) -> "ShardedSA":
+        """Split ``idx``'s SA over `devices` (one piece each, in order),
+        a piece at a time: the whole SA is never held as one array."""
+        n = idx.sa_ls.shape[0]
+        per = -(-n // len(devices))
+        shards = []
+        for d, dev in enumerate(devices):
+            lo, hi = min(d * per, n), min((d + 1) * per, n)
+            piece = (idx.sa_ls[lo:hi].astype(np.int64)
+                     | (idx.sa_ms[lo:hi].astype(np.int64) << 32)) if wide \
+                else idx.sa_ls[lo:hi]
+            padded = np.zeros(per, np.int64 if wide else np.int32)
+            padded[:hi - lo] = piece
+            shards.append(_tensor(padded, dev))
+        return cls(shards=tuple(shards), rows=per)
+
+
+def sa_lookup_sharded(ssa: ShardedSA, rows: list) -> list:
+    """Suffix positions for global rows (each in [0, ssa.n_rows)) when the
+    SA is sharded: ``rows`` holds one tensor a requester, on any device;
+    the answers come back in the same order, each on its requester's
+    device.
+
+    Every shard gathers all requests onto its device and answers those
+    inside its slice (0 elsewhere); the answers are then summed back to
+    each requester.  Exactly one shard hits each request, so the sum is
+    the answer.  What moves between devices is the requests and the
+    answers, never the SA."""
+    if not rows:
+        return []
+    sizes = [r.numel() for r in rows]
+    answers = []
+    for d, sa_d in enumerate(ssa.shards):
+        dev = sa_d.device
+        allrows = torch.cat([r.reshape(-1).to(dev, non_blocking=True)
+                             for r in rows])
+        loc = allrows - d * ssa.rows
+        hit = (loc >= 0) & (loc < ssa.rows)
+        answers.append(torch.where(hit, sa_d[loc.clamp(0, ssa.rows - 1)],
+                                   0))
+    out = []
+    off = 0
+    for r, n in zip(rows, sizes):
+        acc = None
+        for ans in answers:
+            part = ans[off:off + n].to(r.device, non_blocking=True)
+            acc = part if acc is None else acc + part
+        out.append(acc.reshape(r.shape))
+        off += n
+    return out
 
 
 # ------------------------------------------------------- sampled SA ----

@@ -10,6 +10,10 @@ repetitive SMEMs) for the frac_rep MAPQ correction.
 With ``sa_shift > 0`` the suffix positions come from a sampled SA
 (``ss``) through ``ops.sa_sampled_cuda.sa_lookup_sampled_core`` (K5 on a
 CUDA device); the device index then holds only ``sa[:1]``.
+
+On a device mesh (``seed_rows_mesh``) each shard expands the SMEMs of its
+slice of the batch on its own device; under ``shard_sa`` the positions
+come from the SA split over the mesh (``ops.fm.sa_lookup_sharded``).
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ from typing import NamedTuple
 
 import torch
 
-from tpubwa_torch.ops.fm import DeviceIndex, SampledSA
+from tpubwa_torch.ops.fm import (DeviceIndex, SampledSA, ShardedSA,
+                                 sa_lookup_sharded)
 from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
 from tpubwa_torch.ops.smem import Smems
 
@@ -25,8 +30,9 @@ I32 = torch.int32
 
 
 class CompactSeeds(NamedTuple):
-    packed: torch.Tensor    # [CAP, 4] rows (read_id, rbeg, qbeg, len), in
-    #                         (read, slot) order; rows >= n are zero
+    packed: torch.Tensor    # [R, 4] rows (read_id, rbeg, qbeg, len), in
+    #                         (read, slot) order; rows >= n are zero;
+    #                         R = min(CAP, B * per_read_cap)
     n: torch.Tensor         # [] number of valid rows
     l_rep: torch.Tensor     # [B] int32
     overflow: torch.Tensor  # [B] bool per-read seed-cap overflow
@@ -37,16 +43,72 @@ def seed_rows(di: DeviceIndex, sm: Smems, *, max_occ: int = 500,
               ss: SampledSA | None = None,
               sa_shift: int = 0) -> CompactSeeds:
     """SMEMs -> dense [CAP, 4] seed rows in compacted global layout
-    (read-major, SMEM order within read), CAP = B * rows_per_read.
+    (read-major, SMEM order within read), CAP = B * rows_per_read: the
+    one-shard case of ``seed_rows_mesh``."""
+    return seed_rows_mesh([di], [sm], max_occ=max_occ,
+                          per_read_cap=per_read_cap,
+                          rows_per_read=rows_per_read, sss=[ss],
+                          sa_shift=sa_shift)[0]
 
-    Per-SMEM hit counts are laid out by a global cumsum; the slot->SMEM
-    owner map is one scatter-max + cummax.  Scatters that drop
-    out-of-range rows write to one extra dump row that is sliced off."""
-    B, M = sm.k.shape
-    dev = sm.k.device
-    idt = sm.k.dtype
+
+def seed_rows_mesh(dis: list, sms: list, *, max_occ: int = 500,
+                   per_read_cap: int = 128, rows_per_read: int = 32,
+                   sss: list | None = None, sa_shift: int = 0,
+                   ssa: ShardedSA | None = None) -> list:
+    """``seed_rows`` over the consecutive read slices of a batch: shard d
+    has the SMEMs ``sms[d]`` of its reads on the device of ``dis[d]``.
+    Returns one CompactSeeds a shard, read ids local to the shard; the
+    shards' rows in shard order are the rows of one device over the whole
+    batch.
+
+    CAP = B * rows_per_read holds for the whole batch: the shards first
+    exchange their row totals (a tensor a shard, no host sync), so that
+    shard d knows its global base and keeps exactly the slots below CAP.
+    Per-SMEM hit counts are laid out by a cumsum; the slot->SMEM owner map
+    is one scatter-max + cummax.  Scatters that drop out-of-range rows
+    write to one extra dump row that is sliced off.
+
+    Suffix positions come from each shard's device index, or with
+    ``sa_shift > 0`` from its sampled SA ``sss[d]`` (K5 on a CUDA
+    device), or from the sharded SA ``ssa``."""
     S = per_read_cap
-    CAP = B * rows_per_read
+    CAP = sum(sm.k.shape[0] for sm in sms) * rows_per_read
+    sss = sss or [None] * len(sms)
+    cnts = [_counts(sm, max_occ, S) for sm in sms]
+
+    # each shard's global base: the row totals of the shards before it
+    bases = []
+    for d, sm in enumerate(sms):
+        dev = sm.k.device
+        bases.append(sum((c["tot"].to(dev, non_blocking=True)
+                          for c in cnts[:d]),
+                         torch.zeros((), dtype=I32, device=dev)))
+
+    lays = [_layout(sm, c, base, CAP, S)
+            for sm, c, base in zip(sms, cnts, bases)]
+    if ssa is not None:
+        # rows span the padded SA; a pad row answers 0
+        rbegs = sa_lookup_sharded(
+            ssa, [lay["sa_row"].clamp(0, ssa.n_rows - 1) for lay in lays])
+    elif sa_shift > 0:
+        # rows span [0, N]: clip to the text, never to the stub's sa[:1];
+        # only the live rows are seeds: the rest come back 0
+        rbegs = [sa_lookup_sampled_core(di, ss,
+                                        lay["sa_row"].clamp(0, 2 * di.l_pac),
+                                        sa_shift, n_live=lay["n_live"])
+                 for di, ss, lay in zip(dis, sss, lays)]
+    else:
+        rbegs = [di.sa[lay["sa_row"].clamp(0, di.sa.shape[0] - 1)]
+                 for di, lay in zip(dis, lays)]
+    return [_compact(di, sm, c, lay, rbeg, max_occ)
+            for di, sm, c, lay, rbeg in zip(dis, sms, cnts, lays, rbegs)]
+
+
+def _counts(sm: Smems, max_occ: int, S: int) -> dict:
+    """Per-read slot counts (bwa's occ/max_occ stride sampling, truncated
+    at the per-read cap S) and the shard's row total."""
+    M = sm.k.shape[1]
+    dev = sm.k.device
     in_use = torch.arange(M, device=dev)[None, :] < sm.n[:, None]
     occ = torch.where(in_use, sm.s, 0)
     step = torch.where(occ > max_occ, occ // max_occ, 1)
@@ -57,56 +119,73 @@ def seed_rows(di: DeviceIndex, sm: Smems, *, max_occ: int = 500,
     off_beg_r = off_end_r - cnt
     ob = off_beg_r.clamp(max=S)
     oe = off_end_r.clamp(max=S)
-    cnt2 = oe - ob
     read_tot = oe[:, -1]
-    read_ovf = off_end_r[:, -1] > S
+    return dict(in_use=in_use, step=step, ob=ob, cnt2=oe - ob,
+                read_tot=read_tot, read_ovf=off_end_r[:, -1] > S,
+                tot=read_tot.sum(dtype=I32))
 
-    # global layout: read b's seeds occupy [base[b], base[b] + read_tot[b])
-    base = torch.cumsum(read_tot, dim=0, dtype=I32) - read_tot
-    n_total = torch.clamp(base[-1] + read_tot[-1], max=CAP)
-    g_beg = (base[:, None] + ob).reshape(-1)                # [B*M]
+
+def _layout(sm: Smems, c: dict, base: torch.Tensor, CAP: int,
+            S: int) -> dict:
+    """The shard's slots: [R, ...] with R = min(CAP, B * S), slot t
+    holding global row base + t; the live ones are those below the
+    shard's total and below CAP."""
+    B, M = sm.k.shape
+    dev = sm.k.device
+    idt = sm.k.dtype
+    R = min(CAP, B * S)
+    # local layout: read b's seeds occupy [lb[b], lb[b] + read_tot[b])
+    lb = torch.cumsum(c["read_tot"], dim=0, dtype=I32) - c["read_tot"]
+    n_live = torch.clamp(torch.minimum(c["tot"], CAP - base), min=0)
+    g_beg = (lb[:, None] + c["ob"]).reshape(-1)              # [B*M]
 
     # owner map: scatter each live SMEM's flat id at its first slot, cummax
-    # (SMEMs starting past the CAP rows are dropped with the rest)
+    # (SMEMs starting past the R rows are dropped with the rest)
     flat_id = torch.arange(B * M, dtype=I32, device=dev)
-    live = (cnt2 > 0).reshape(-1) & (g_beg < CAP)
-    dst = torch.where(live, g_beg, CAP).to(torch.int64)
-    owner = torch.full((CAP + 1,), -1, dtype=I32, device=dev).scatter_reduce(
-        0, dst, flat_id, "amax")[:CAP]
+    live = (c["cnt2"] > 0).reshape(-1) & (g_beg < R)
+    dst = torch.where(live, g_beg, R).to(torch.int64)
+    owner = torch.full((R + 1,), -1, dtype=I32, device=dev).scatter_reduce(
+        0, dst, flat_id, "amax")[:R]
     owner = torch.cummax(owner, dim=0).values.clamp(0, B * M - 1)
     owner = owner.to(torch.int64)
 
-    t = torch.arange(CAP, dtype=I32, device=dev)
-    valid = t < n_total
-    rd = owner // M
+    t = torch.arange(R, dtype=I32, device=dev)
     j = t - g_beg[owner]
-    sa_row = sm.k.reshape(-1)[owner] + (j * step.reshape(-1)[owner]).to(idt)
-    if sa_shift > 0:
-        # rows span [0, N]: clip to the text, never to the stub's sa[:1]
-        # only the rows below n_total are seeds: the rest come back 0
-        rbeg = sa_lookup_sampled_core(di, ss, sa_row.clamp(0, 2 * di.l_pac),
-                                      sa_shift, n_live=n_total)
-    else:
-        rbeg = di.sa[sa_row.clamp(0, di.sa.shape[0] - 1)]
+    sa_row = sm.k.reshape(-1)[owner] + (j * c["step"].reshape(-1)[owner]
+                                        ).to(idt)
+    return dict(owner=owner, valid=t < n_live, n_live=n_live, lb=lb,
+                base=base, sa_row=sa_row, CAP=CAP)
+
+
+def _compact(di: DeviceIndex, sm: Smems, c: dict, lay: dict,
+             rbeg: torch.Tensor, max_occ: int) -> CompactSeeds:
+    """Drop the seeds that bridge the strand boundary, compact the rows,
+    and compute l_rep and the overflow flags."""
+    B, M = sm.k.shape
+    dev = sm.k.device
+    idt = sm.k.dtype
+    owner = lay["owner"]
+    R = owner.shape[0]
+    rd = owner // M
     qbeg = sm.start.reshape(-1)[owner]
     slen = sm.end.reshape(-1)[owner] - qbeg
 
     # drop seeds bridging the forward/reverse strand boundary
     bridge = (rbeg < di.l_pac) & (rbeg + slen > di.l_pac)
-    keep = valid & ~bridge
+    keep = lay["valid"] & ~bridge
 
     # compact the (rare) bridge-dropped rows out of the dense prefix
     k32 = keep.to(I32)
     pos = torch.cumsum(k32, dim=0, dtype=I32) - k32
-    out_dst = torch.where(keep, pos, CAP).to(torch.int64)
+    out_dst = torch.where(keep, pos, R).to(torch.int64)
     rows = torch.stack([rd.to(idt), rbeg.to(idt), qbeg.to(idt),
                         slen.to(idt)], dim=1)
-    packed = torch.zeros((CAP + 1, 4), dtype=idt, device=dev).index_put(
-        (out_dst,), rows)[:CAP]
+    packed = torch.zeros((R + 1, 4), dtype=idt, device=dev).index_put(
+        (out_dst,), rows)[:R]
 
     # l_rep: union length of query intervals of repetitive SMEMs (SMEMs
     # are sorted by start within each read)
-    rep = in_use & (sm.s > max_occ)
+    rep = c["in_use"] & (sm.s > max_occ)
     end_m = torch.where(rep, sm.end, 0)
     prev = torch.cat([torch.zeros((B, 1), dtype=end_m.dtype, device=dev),
                       torch.cummax(end_m, dim=1).values[:, :-1]], dim=1)
@@ -114,6 +193,7 @@ def seed_rows(di: DeviceIndex, sm: Smems, *, max_occ: int = 500,
         rep, torch.clamp(sm.end - torch.maximum(sm.start, prev), min=0), 0)
     l_rep = contrib.sum(dim=1).to(I32)
 
-    ovf = read_ovf | (base + read_tot > CAP)
+    ovf = c["read_ovf"] | (lay["base"] + lay["lb"] + c["read_tot"]
+                           > lay["CAP"])
     return CompactSeeds(packed=packed, n=k32.sum(), l_rep=l_rep,
                         overflow=ovf)

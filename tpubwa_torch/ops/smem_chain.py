@@ -358,7 +358,8 @@ def _smem_r1_prep(di: DeviceIndex, q: torch.Tensor, lens: torch.Tensor, *,
                   min_seed_len: int, split_len: int, split_width: int,
                   out_cap: int):
     """Stage 1: round-1 SMEMs appended into fresh output buffers + the
-    round-2 candidate compaction table (read-major order)."""
+    round-2 candidate compaction table (read-major order) and the number
+    of candidates (a tensor on the device)."""
     B, L = q.shape
     dev = q.device
     idt = di.L2.dtype
@@ -381,7 +382,7 @@ def _smem_r1_prep(di: DeviceIndex, q: torch.Tensor, lens: torch.Tensor, *,
         0, torch.where(flat_cand, grank, NC).to(torch.int64),
         torch.arange(NC, dtype=I32, device=dev))[:NC]
     return (mems, src_tab, r1.start.reshape(NC), r1.end.reshape(NC),
-            r1.s.reshape(NC), int(fc.sum()))
+            r1.s.reshape(NC), fc.sum())
 
 
 def _r2_lanes(src_tab, r1_start, r1_end, r1_s, total: int, w: int, *,
@@ -484,20 +485,40 @@ def collect_smems_chain(di: DeviceIndex, q: torch.Tensor, lens: torch.Tensor,
     Round-2 candidates are compacted globally (read-major order) into waves
     of `r2_lanes` chain lanes, so lane count tracks the actual candidate
     load instead of a per-read worst case."""
-    B, L = q.shape
-    q = q.to(I32)
-    lens = lens.to(I32)
-    G = 2 * B if r2_lanes is None else r2_lanes
+    return collect_smems_mesh(
+        [di], [q], [lens], min_seed_len=min_seed_len, split_len=split_len,
+        split_width=split_width, max_mem_intv=max_mem_intv, out_cap=out_cap,
+        r2_lanes=r2_lanes, r2_cap=r2_cap)[0]
 
-    mems, src_tab, r1_start, r1_end, r1_s, total = _smem_r1_prep(
-        di, q, lens, min_seed_len=min_seed_len, split_len=split_len,
-        split_width=split_width, out_cap=out_cap)
-    mems = _smem_r2_loop(
-        di, q, lens, mems, src_tab, r1_start, r1_end, r1_s, total,
-        min_seed_len=min_seed_len, r2_cap=r2_cap, out_cap=out_cap, G=G)
-    if max_mem_intv > 0:
-        r3 = _cores().smem_round3_core(
-            di, q, lens, min_seed_len=min_seed_len,
-            max_mem_intv=max_mem_intv, cap=out_cap)
-        mems = _r3_append(mems, r3, out_cap)
-    return _sort_by_start_end(mems, L, out_cap)
+
+def collect_smems_mesh(dis: list, qs: list, lenss: list, *,
+                       min_seed_len: int = 19, split_len: int = 28,
+                       split_width: int = 10, max_mem_intv: int = 20,
+                       out_cap: int = 64, r2_lanes: int | None = None,
+                       r2_cap: int = 32) -> list:
+    """``collect_smems_chain`` for several read slices, slice d on the
+    device of ``dis[d]``; returns one Smems a slice.  Each stage is issued
+    on every slice before the next: round 1 everywhere, then the round-2
+    candidate counts read on the host (the one wait), then rounds 2 and 3
+    everywhere, so the devices of a mesh work at once."""
+    qs = [q.to(I32) for q in qs]
+    lenss = [lens.to(I32) for lens in lenss]
+    preps = [_smem_r1_prep(di, q, lens, min_seed_len=min_seed_len,
+                           split_len=split_len, split_width=split_width,
+                           out_cap=out_cap)
+             for di, q, lens in zip(dis, qs, lenss)]
+    totals = [int(p[5]) for p in preps]
+    out = []
+    for di, q, lens, prep, total in zip(dis, qs, lenss, preps, totals):
+        B, L = q.shape
+        mems = _smem_r2_loop(
+            di, q, lens, *prep[:5], total, min_seed_len=min_seed_len,
+            r2_cap=r2_cap, out_cap=out_cap,
+            G=2 * B if r2_lanes is None else r2_lanes)
+        if max_mem_intv > 0:
+            r3 = _cores().smem_round3_core(
+                di, q, lens, min_seed_len=min_seed_len,
+                max_mem_intv=max_mem_intv, cap=out_cap)
+            mems = _r3_append(mems, r3, out_cap)
+        out.append(_sort_by_start_end(mems, L, out_cap))
+    return out

@@ -111,6 +111,27 @@ Phases (any failure exits non-zero):
    tests/golden/se.sam; (g) `--preset v5e-4 --device cuda` exits 1 with
    one line on fewer than 4 cards (on 4 or more it runs and equals (f));
    (h) with two cards, (a) on cuda:0 and cuda:1.
+11. A genome of real size: tpubwa_torch.utils.gensim's realistic genome
+   (segmental duplications, an Alu-like family, microsatellites,
+   homopolymer runs, GC skew, N-islands written as N) at the length of
+   GRCh38 chr21, 46,709,983 bp (seed 1234); 20,000 SE reads and 10,000
+   pairs as in phases 4 and 5, batch 8192.  (a) The index build, timed.
+   (b) SE: a counted run (K2, K1, K3 launched; its first K1 waves and
+   every _ga_rows call captured) whose SAM body's SHA-256 equals the JAX
+   package's (pinned below), three warm passes (reads/s, launches, the
+   phase table), a profiled pass; (c) PE the same, K4 launched, its own
+   pinned hash; (d) --sa-shift 5 (K5 launched, its calls captured) and
+   the forced wide layout, each SE body equal to (b)'s, with the device
+   bytes of each layout; (e) on this index, K2's three rounds on the
+   first SE batch (narrow and wide, steps a lane, us a step), the
+   captured K1 waves, K3 calls and first K4 rescue round, and (d)'s K5
+   calls against their plain versions; (f) the dependent-gather time over
+   this index's checkpoint table, the wide table and the SA (the last two
+   larger than the L2 cache); (g) values at and above 2^31: K5 against
+   its plain version and the SA on utils.sim.high_word_index (counts and
+   SA values + 2^31 + 12,345), and K2's three rounds and K5 on the index
+   with its rows moved up by 2^31 + 12,352 (against the plain versions
+   and the unmoved index's results).
 
 Before the last line: one JSON line of the seven kernels (launches on the
 path that runs them, agreement, kernel / plain / bound times), then the
@@ -676,11 +697,12 @@ def _same_smems(tag: str, got, want) -> int:
     return same_fields(f"K2 == plain, {tag}", got, want)
 
 
-def phase_k2(fixtures: dict) -> dict:
+def phase_k2(fixtures: dict, prefix: str = "k2") -> dict:
     """K2 against the plain chains on the first batch of each fixture
-    ({"se": (fa, fq), "pe": (fa, fq1)}), narrow and wide; returns the
-    kernels-line entry (times and bound of the three rounds on the SE
-    batch, narrow)."""
+    ({"se": (fa, fq), "pe": (fa, fq1)}), narrow and wide; returns each
+    fixture's kernels-line entry (times and bound of the three rounds on
+    its first batch, narrow) by name.  Every fixture but phase 4's random
+    genome must reach the overflow path at the small caps."""
     import torch
 
     from tpubwa_torch.config import MemOptions
@@ -692,7 +714,7 @@ def phase_k2(fixtures: dict) -> dict:
     opt = MemOptions()
     dev = torch.device("cuda")
     msl, cap, r2_cap = opt.min_seed_len, opt.max_smems_per_read, 32
-    entry = {}
+    entries = {}
     with keep_launches():
         for name, (fa, fq) in fixtures.items():
             idx = FMIndex.load(fa)
@@ -741,13 +763,14 @@ def phase_k2(fixtures: dict) -> dict:
                             ovf[r] = int(got.overflow.sum())
                             # the repeat genome must reach the overflow
                             # path; a random one emits too little for it
-                            check(ovf[r] > 0 or name != "pe",
+                            check(ovf[r] > 0 or name == "se",
                                   f"{tag} {r} cap {c} overflows")
                     ms[r] = _cuda_ms(lambda: core(*args, **kw, cap=full),
                                      reps=20)
                 n_steps = {r: int(v.sum()) for r, v in steps.items()}
-                print(f"[k2] {tag}: B={B} L={q.shape[1]}, {total} round-2 "
-                      f"candidates ({min(total, G)} in wave 0 of G={G}): "
+                print(f"[{prefix}] {tag}: B={B} L={q.shape[1]}, {total} "
+                      f"round-2 candidates ({min(total, G)} in wave 0 of "
+                      f"G={G}): "
                       "rounds 1, 2, 3 == plain on whole buffers at caps "
                       f"{cap}/{r2_cap}/{cap} (emitted {emitted}) and at "
                       f"2/1/2 (lanes overflowing {ovf}); kernel "
@@ -761,13 +784,13 @@ def phase_k2(fixtures: dict) -> dict:
                 for r, v in steps.items():
                     d = v.double()
                     mx = int(v.max())
-                    print(f"[k2] {tag} {r}: steps a lane: mean "
+                    print(f"[{prefix}] {tag} {r}: steps a lane: mean "
                           f"{float(d.mean()):.1f}, p99 "
                           f"{float(torch.quantile(d, 0.99)):.0f}, max {mx}; "
                           f"{ms[r]:.3f} ms / {mx} steps = "
                           f"{1e3 * ms[r] / max(mx, 1):.3f} us a step on the "
                           "longest chain")
-                if name == "se" and not wide:
+                if not wide:
                     # each step reads two checkpoint rows; what the table
                     # holds is read at most once, the rest is reuse
                     row_b = di.cp.element_size() * 8
@@ -778,40 +801,51 @@ def phase_k2(fixtures: dict) -> dict:
                              + (2 * B * cap + G * r2_cap) * 5 * item
                              + (2 * B + G) * 5)
                     b = bound(moved, total_steps * OPS_CHAIN_STEP)
-                    print(f"[k2] bound of the three rounds ({tag}): "
+                    print(f"[{prefix}] bound of the three rounds ({tag}): "
                           f"{total_steps} steps x {OPS_CHAIN_STEP} ops, "
                           f"{moved} bytes: {b['bound_ms']:.4f} ms by "
                           f"{b['bound_by']}; as dependent gathers, "
                           f"{2 * total_steps} rows of {row_b} bytes")
-                    entry = dict(max_abs_err=err, ms=sum(ms.values()),
-                                 plain_ms=sum(plain_ms.values()), **b)
-    return entry
+                    entries[name] = dict(
+                        max_abs_err=err, ms=sum(ms.values()),
+                        plain_ms=sum(plain_ms.values()), **b)
+    return entries
 
 
-def gather_rate(idx) -> None:
+def gather_rate(idx, tag: str = "gather", beyond_l2: bool = False) -> None:
     """The card's random-gather rate on the checkpoint table (rows of 32
-    bytes at random addresses, the access of K2 and K5), table in L2."""
+    bytes at random addresses, the access of K2 and K5) and the time of
+    one dependent gather from it.  ``beyond_l2`` adds the dependent
+    gather over the wide layout's checkpoint table and over the SA, each
+    read as rows of 32 bytes: tables that do not fit the L2 cache."""
     import torch
 
     from tpubwa_torch.ops.fm import DeviceIndex
+    from tpubwa_torch.utils.gather_latency import measure
 
     dev = torch.device("cuda")
-    cp = DeviceIndex.from_host(idx, dev, sa_stub=True).cp
+    di = DeviceIndex.from_host(idx, dev, sa_stub=not beyond_l2)
+    cp = di.cp
     n = 1 << 24
     rows = torch.randint(0, cp.shape[0], (n,), device=dev)
     ms = _cuda_ms(lambda: cp[rows], reps=5)
-    print(f"[gather] {n} random rows of {cp.shape[1] * cp.element_size()} "
+    print(f"[{tag}] {n} random rows of {cp.shape[1] * cp.element_size()} "
           f"bytes from a {_nbytes(cp)}-byte table (independent, torch "
           f"index): {ms:.3f} ms = {n / ms / 1e6:.2f} G rows/s")
     # the other end: one DEPENDENT gather after another, the floor under
     # a step of K2's chains (a probe kernel, no part of the aligner)
-    from tpubwa_torch.utils.gather_latency import measure
-
-    for r in measure(cp):
-        print(f"[gather] dependent loads over {r['rows']} rows "
-              f"({r['table_bytes']} bytes), {r['what']}: "
-              f"{r['us_per_step']:.3f} us = {r['cycles_per_step']:.0f} "
-              "cycles a step")
+    tables = {"checkpoints": cp}
+    if beyond_l2:
+        wide = DeviceIndex.from_host(idx, dev, wide=True, sa_stub=True).cp
+        tables["wide checkpoints"] = wide.view(torch.int32).view(-1, 8)
+        sa = di.sa[:di.sa.numel() // 8 * 8]
+        tables["SA"] = sa.view(-1, 8)
+    for name, table in tables.items():
+        for r in measure(table):
+            print(f"[{tag}] dependent loads over {r['rows']} rows "
+                  f"({r['table_bytes']} bytes) of the {name}, {r['what']}: "
+                  f"{r['us_per_step']:.3f} us = {r['cycles_per_step']:.0f} "
+                  "cycles a step")
 
 
 def _ga_cells(qlen, tlen, w) -> int:
@@ -1127,6 +1161,27 @@ def capture_first(module, attr: str, captured: list, limit: int = 1):
     return cm()
 
 
+def wave_capture(captured: dict):
+    """K1's wrapper, keeping (tensors cloned) the core inputs of the first
+    left and the first right wave of a run in `captured`, each with its
+    retry launch (whose lanes are mostly dead)."""
+    import torch
+
+    from tpubwa_torch.ops.extend_cuda import extend_core
+
+    def capturing_core(*args, **kw):
+        # the caller's caller is extend_jobs_left / extend_jobs_right
+        side = sys._getframe(2).f_code.co_name.rsplit("_", 1)[-1]
+        if side in ("left", "right"):
+            key = side if side not in captured else f"{side} retry"
+            if key not in captured:
+                captured[key] = (tuple(a.clone() if torch.is_tensor(a) else a
+                                       for a in args), dict(kw))
+        return extend_core(*args, **kw)
+
+    return capturing_core
+
+
 def profiled_pass(tag: str, run, history: str = "", top: int = 6) -> None:
     """One pass (`run`) under torch.profiler: the number of device
     kernels, the device time and its share of the pass, the device time by
@@ -1153,7 +1208,7 @@ def profiled_pass(tag: str, run, history: str = "", top: int = 6) -> None:
         for o in own if any(o in nm for nm in by_name)))
 
 
-def realistic_fixture() -> tuple[str, str]:
+def se_fixture() -> tuple[str, str]:
     """bench.py's _ensure_fixture recipe (random genome, seed 42; reads
     seed 7), built in the checkout's build directory."""
     from tpubwa_torch.io.fasta import read_fasta
@@ -1205,8 +1260,6 @@ def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
     """Returns the captured core inputs {"left": (args, kw), "right":
     (args, kw)} and every _ga_rows call's of the counted run, its
     launches, and the fixture, aligner and SAM body for phases 7-9."""
-    import torch
-
     from tpubwa_torch.align import flatsam
     from tpubwa_torch.align.pipeline import Aligner, run_se_pipeline
     from tpubwa_torch.config import MemOptions
@@ -1218,20 +1271,7 @@ def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
     aligner = Aligner(idx, MemOptions(batch_reads=BATCH), device=device)
 
     captured: dict = {}
-
-    def capturing_core(*args, **kw):
-        # the first left and the first right wave of the run (the caller's
-        # caller is extend_jobs_left / extend_jobs_right), each with its
-        # retry launch, whose lanes are mostly dead
-        side = sys._getframe(2).f_code.co_name.rsplit("_", 1)[-1]
-        if side in ("left", "right"):
-            key = side if side not in captured else f"{side} retry"
-            if key not in captured:
-                captured[key] = (tuple(a.clone() if torch.is_tensor(a) else a
-                                       for a in args), dict(kw))
-        return extend_core(*args, **kw)
-
-    aligner.ext_core = capturing_core
+    aligner.ext_core = wave_capture(captured)
     ga_captured: list = []
     out = io.StringIO()
     with capture_first(flatsam, "_ga_rows", ga_captured, limit=64):
@@ -1551,7 +1591,7 @@ def k5_card(di, ss, rows, shift: int, **kw) -> str:
             else "card's clock not measured")
 
 
-def k5_calls(calls: list, shift: int) -> None:
+def k5_calls(calls: list, shift: int, tag: str = "8a") -> None:
     """Every K5 call of a counted run (seed_rows' lookups, a call a
     batch), one line a call: rows, live rows, kernel and plain ms, the
     bound on the live rows' walks; exact against the plain version."""
@@ -1577,8 +1617,8 @@ def k5_calls(calls: list, shift: int) -> None:
             # every row of the buffer, as the first design walked them
             every_ms = _cuda_ms(lambda: sa_lookup_sampled_core(
                 di, ss, rows, sh), reps=10)
-            print(f"[8a] K5 call {i + 1}: {rows.numel()} rows, {live} live; "
-                  f"kernel {ms:.4f} ms, {k5_card(*args, **kw)}; plain "
+            print(f"[{tag}] K5 call {i + 1}: {rows.numel()} rows, {live} "
+                  f"live; kernel {ms:.4f} ms, {k5_card(*args, **kw)}; plain "
                   f"{plain_ms:.3f} ms; {b['steps']} LF steps: bound "
                   f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
                   f"({100 * b['bound_ms'] / ms:.1f}% of it reached); every "
@@ -2011,6 +2051,355 @@ def phase_mesh(se: dict, pe_files: tuple) -> None:
     print(f"[10] the device mesh in {time.monotonic() - t0:.1f} s")
 
 
+# --------------------------------------------------------------- 11 ----
+
+CHR21_LEN = 46_709_983          # GRCh38 chr21 (N runs included)
+CHR21_PAIRS = 10_000
+CHR21_WARM = 3
+# SHA-256 of the SAM bodies the JAX package writes for phase 11's files
+# (tpubwa.align.pipeline.align_fastq, JAX_PLATFORMS=cpu, batch_reads=8192):
+# the 20,000 SE reads, and the 10,000 pairs
+SE_CHR21_SHA256 = ("704471de08e314533aa05de2d8b4ffd4"
+                   "d76ff8a83069d84083c5a96b7264ceb7")
+PE_CHR21_SHA256 = ("49eda9223618a629a4a6f5b59df71d99"
+                   "c05404106ccd90d801b54c7fdf3c6775")
+
+
+def chr21_fixture() -> dict:
+    """utils.gensim's realistic genome at the length of GRCh38 chr21 (seed
+    1234, its N-islands written as N, contig chr21synth), indexed by the
+    port (read_fasta + FMIndex.build, timed: 11(a)); 20,000 SE reads of
+    150 bp at 1 % error and 10,000 pairs (insert 400 +- 50), seed 7."""
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.io.fasta import read_fasta
+    from tpubwa_torch.utils import gensim, sim
+
+    d = os.path.join(WORK, "chr21")
+    os.makedirs(d, exist_ok=True)
+    fa = os.path.join(d, "chr21synth.fa")
+    fx = dict(fa=fa, fq=os.path.join(d, "se.fq"),
+              fq1=os.path.join(d, "pe_1.fq"), fq2=os.path.join(d, "pe_2.fq"))
+    t = time.monotonic()
+    codes, n_mask = gensim.realistic_genome(np.random.default_rng(1234),
+                                            CHR21_LEN)
+    gensim.write_fasta(fa, codes, n_mask, name="chr21synth")
+    n_n = int(n_mask.sum())
+    del codes, n_mask
+    gen = time.monotonic() - t
+    t = time.monotonic()
+    contigs, codes, holes = read_fasta(fa)
+    idx = FMIndex.build(contigs, codes, holes)
+    fx["build_s"] = time.monotonic() - t
+    idx.save(fa)
+    t = time.monotonic()
+    sim.write_fastq(fx["fq"], sim.simulate_reads(codes, contigs, N_READS,
+                                                 length=150, err=0.01,
+                                                 seed=7))
+    r1, r2 = sim.simulate_pairs(codes, contigs, CHR21_PAIRS, length=150,
+                                err=0.01, seed=7)
+    sim.write_fastq(fx["fq1"], r1)
+    sim.write_fastq(fx["fq2"], r2)
+    print(f"[11a] chr21-scale realistic genome: {CHR21_LEN} bp ({n_n} N in "
+          f"{len(holes)} runs) in {gen:.1f} s; index of {idx.seq_len} "
+          f"characters built in {fx['build_s']:.1f} s (read_fasta + "
+          f"FMIndex.build); {N_READS} reads and {CHR21_PAIRS} pairs in "
+          f"{time.monotonic() - t:.1f} s")
+    fx["idx"] = idx
+    return fx
+
+
+def _index_bytes(al) -> str:
+    di = al.di
+    parts = [f"cp {_nbytes(di.cp)}", f"SA {_nbytes(di.sa)}",
+             f"pac {_nbytes(di.pac_words)}"]
+    if al.ss is not None:
+        parts.append(f"sampled SA {_nbytes(al.ss.vals)} values + "
+                     f"{_nbytes(al.ss.blocks)} blocks")
+    return f"{str(di.cp.dtype).split('.')[-1]}: " + ", ".join(parts) + " B"
+
+
+def _warm_passes(tag: str, al, run, body: str, n_reads: int) -> None:
+    """CHR21_WARM warm passes, each counted and equal to `body`: reads/s,
+    launches, and the phase table of all of them."""
+    al.timers = type(al.timers)()
+    rates = []
+    for i in range(CHR21_WARM):
+        text, dt, n = _pass(al, run)
+        check(text == body, f"{tag} warm pass {i + 1}: body == the counted "
+              "run's")
+        rates.append(n_reads / dt)
+    print(f"[{tag}] {CHR21_WARM} warm passes (batch {BATCH}): "
+          f"{', '.join(f'{r:.1f}' for r in rates)} reads/s; launches a pass "
+          f"{_launch_line(n)}")
+    print_phases(f"{tag} {CHR21_WARM} warm passes", al.timers)
+
+
+def _digest(sam: str) -> str:
+    return hashlib.sha256(_body(sam).encode()).hexdigest()
+
+
+def chr21_se(fx: dict, device: str = "cuda") -> dict:
+    """11(b): the counted SE run (its K1 waves and _ga_rows calls
+    captured), its body against the pinned JAX hash, warm passes, a
+    profiled pass."""
+    from tpubwa_torch.align import flatsam
+    from tpubwa_torch.align.pipeline import Aligner, run_se_pipeline
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.ops import global_align_cuda
+    from tpubwa_torch.ops.extend_cuda import extend_core
+
+    al = Aligner(fx["idx"], MemOptions(batch_reads=BATCH), device=device)
+    print(f"[11b] device index {_index_bytes(al)}")
+    waves: dict = {}
+    ga: list = []
+    al.ext_core = wave_capture(waves)
+
+    def run(a, out):
+        run_se_pipeline(a, fx["fq"], out)
+
+    with capture_first(flatsam, "_ga_rows", ga, limit=1024):
+        text, cold, n = _pass(al, run)
+    al.ext_core = extend_core
+    check(n["smem_chain"] > 0 and n["extend"] > 0 and n["global_align"] > 0,
+          f"11b: the SE path launched K2, K1 and K3 ({n})")
+    check(len(ga) == global_align_cuda.ga_pack.launches,
+          "11b: every _ga_rows call of the run captured")
+    check(set(waves) == {"left", "left retry", "right", "right retry"},
+          "11b: the first left and right waves captured, with retries")
+    prim = [ln.split("\t") for ln in text.splitlines()
+            if not int(ln.split("\t")[1]) & 0x900]
+    mapped = [f for f in prim if not int(f[1]) & 4]
+    near = sum(abs(int(f[3]) - 1 - int(f[0].split("_")[3])) <= 50
+               for f in mapped)
+    digest = _digest(text)
+    print(f"[11b] SE counted run: {N_READS} reads in {cold:.2f} s (cold); "
+          f"launches {_launch_line(n)}; {len(prim)} primaries, mapped "
+          f"{len(mapped)}, within 50 bp {near}; {text.count(chr(10))} "
+          f"lines; body sha256 {digest}")
+    check(len(prim) == N_READS, "11b: one primary per read")
+    check(digest == SE_CHR21_SHA256, "11b: SE SAM body equals the JAX "
+          f"package's (sha256 {SE_CHR21_SHA256})")
+    _warm_passes("11b", al, run, text, N_READS)
+    if device == "cuda":
+        profiled_pass("11b", lambda: _timed_se(al, fx["fq"]))
+    return dict(aligner=al, body=text, waves=waves, ga=ga)
+
+
+def chr21_pe(fx: dict, device: str = "cuda") -> dict:
+    """11(c): the counted PE run (its first rescue round and _ga_rows
+    calls captured), K4 launched, the pinned JAX hash, warm passes."""
+    from tpubwa_torch.align import flatsam, pair
+    from tpubwa_torch.align.pipeline import Aligner
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.ops import global_align_cuda
+
+    al = Aligner(fx["idx"], MemOptions(batch_reads=BATCH), device=device)
+    sw: list = []
+    ga: list = []
+
+    def run(a, out):
+        check(pair.align_pe_fastq(a, fx["fq1"], fx["fq2"], out) == 0,
+              "11c: PE exits 0")
+
+    with capture_first(pair, "localsw_core", sw), \
+            capture_first(flatsam, "_ga_rows", ga, limit=1024):
+        text, cold, n = _pass(al, run)
+    check(n["localsw"] > 0, f"11c: the PE path launched K4 ({n})")
+    check(n["smem_chain"] > 0 and n["extend"] > 0 and n["global_align"] > 0,
+          f"11c: the PE path launched K2, K1 and K3 ({n})")
+    check(len(sw) == 1 and len(ga) == global_align_cuda.ga_pack.launches,
+          "11c: the first rescue round and every _ga_rows call captured")
+    digest = _digest(text)
+    flags = [int(ln.split("\t")[1]) for ln in _body(text).splitlines()]
+    prim = [f for f in flags if not f & 0x900]
+    print(f"[11c] PE counted run: {2 * CHR21_PAIRS} reads in {cold:.2f} s "
+          f"(cold); launches {_launch_line(n)}; {len(prim)} primaries, "
+          f"mapped {sum(not f & 4 for f in prim)}, proper pair "
+          f"{sum(bool(f & 2) for f in prim)}; body sha256 {digest}")
+    check(len(prim) == 2 * CHR21_PAIRS, "11c: one primary per end")
+    check(digest == PE_CHR21_SHA256, "11c: PE SAM body equals the JAX "
+          f"package's (sha256 {PE_CHR21_SHA256})")
+    _warm_passes("11c", al, run, text, 2 * CHR21_PAIRS)
+    return dict(sw=sw[0][:2], ga=ga)
+
+
+def chr21_modes(fx: dict, se_body: str, device: str = "cuda") -> list:
+    """11(d): --sa-shift 5 (K5 counted, its calls captured) and the forced
+    wide layout; each SE body == 11(b)'s.  Returns the K5 calls."""
+    import torch
+
+    from tpubwa_torch.align.pipeline import Aligner, run_se_pipeline
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.ops import seeds
+    from tpubwa_torch.ops.fm import DeviceIndex
+
+    def run(a, out):
+        run_se_pipeline(a, fx["fq"], out)
+
+    idx = fx["idx"]
+    k5_calls_seen: list = []
+    als = {"--sa-shift 5": Aligner(idx, MemOptions(batch_reads=BATCH,
+                                                   sa_sample_shift=5),
+                                   device=device),
+           "wide": Aligner(idx, MemOptions(batch_reads=BATCH),
+                           device=device)}
+    als["wide"].di = DeviceIndex.from_host(idx, torch.device(device),
+                                           wide=True)
+    for mode, al in als.items():
+        with capture_first(seeds, "sa_lookup_sampled_core", k5_calls_seen,
+                           limit=64):
+            text, cold, n = _pass(al, run)
+        check(text == se_body, f"11d: {mode} SE body == 11b's")
+        if mode == "--sa-shift 5":
+            check(n["sa_sampled"] > 0 and len(k5_calls_seen)
+                  == n["sa_sampled"], "11d: --sa-shift 5 launched K5, "
+                  "every call captured")
+        text, warm, _ = _pass(al, run)
+        check(text == se_body, f"11d: {mode} warm SE body == 11b's")
+        print(f"[11d] {mode}: body == 11b's ({cold:.2f} s cold); warm "
+              f"{N_READS / warm:.1f} reads/s; launches {_launch_line(n)}; "
+              f"device index {_index_bytes(al)}")
+    return k5_calls_seen
+
+
+def phase_high_words(idx, fq: str, device: str = "cuda") -> dict:
+    """11(g): K2 and K5 against their plain versions where the wide
+    layout's values lie at or above 2^31.  (1) utils.sim.high_word_index
+    (occ counts and SA values + 2^31 + 12,345, L2 minus that): K5 ==
+    plain == the SA + the offset.  (2) The same index with every row
+    moved up by delta >= 2^31 (a multiple of 64: delta / 64 empty
+    checkpoint and directory rows in front, L2 and primary + delta):
+    K2's three rounds == plain, and their intervals == those on the
+    unmoved index + delta; K5 on the moved rows == plain == the SA + the
+    offset."""
+    import torch
+
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.ops import smem_chain as plain
+    from tpubwa_torch.ops import smem_chain_cuda as k2
+    from tpubwa_torch.ops.fm import (DeviceIndex, SampledSA,
+                                     build_sampled_sa, sa_lookup_sampled)
+    from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
+    from tpubwa_torch.utils.sim import (HIGH_WORD, high_word_index,
+                                        sa_edge_rows)
+
+    dev = torch.device(device)
+    shift = 5
+    err = 0
+    rng = np.random.default_rng(11)
+    rows_h = np.concatenate([sa_edge_rows(idx, shift), rng.integers(
+        0, idx.sa_ls.shape[0], 1 << 20)])
+    want_sa = torch.as_tensor(idx.sa[rows_h] + HIGH_WORD, device=dev)
+    rows = torch.as_tensor(rows_h, device=dev)
+    with keep_launches():
+        arr = high_word_index(idx, shift)
+        di = DeviceIndex.from_numpy(arr, dev)
+        ss = SampledSA.from_numpy(arr, dev)
+        check(int(di.cp[:, 0:4].min()) >= 1 << 31 and int(ss.vals.min())
+              >= 1 << 31, "11g: counts and samples at or above 2^31")
+        got = sa_lookup_sampled_core(di, ss, rows, shift)
+        check(torch.equal(got, sa_lookup_sampled(di, ss, rows, shift))
+              and torch.equal(got, want_sa), "11g: K5 == plain == SA + "
+              "offset on the index of high counts")
+        print(f"[11g] counts + {HIGH_WORD} (L2 - {HIGH_WORD}): K5 == plain "
+              f"== SA + {HIGH_WORD} on {rows.numel()} rows")
+        del di, ss, arr
+
+        base = DeviceIndex.from_host(idx, dev, wide=True, sa_stub=True)
+        delta = -(-HIGH_WORD // 64) * 64
+        pad = delta // 64
+        cp = torch.zeros((pad + base.cp.shape[0], 8), dtype=torch.int64,
+                         device=dev)
+        cp[pad:] = base.cp
+        moved = base._replace(cp=cp, L2=base.L2 + delta,
+                              primary=base.primary + delta)
+        sb = build_sampled_sa(None, shift, True, idx=idx, device=dev)
+        blocks = torch.zeros((pad + sb.blocks.shape[0], 4),
+                             dtype=torch.int64, device=dev)
+        blocks[pad:] = sb.blocks
+        ss = SampledSA(blocks=blocks, vals=sb.vals + HIGH_WORD)
+        got = sa_lookup_sampled_core(moved, ss, rows + delta, shift)
+        check(torch.equal(got, sa_lookup_sampled(moved, ss, rows + delta,
+                                                 shift))
+              and torch.equal(got, want_sa), "11g: K5 == plain == SA + "
+              "offset on rows + delta")
+        print(f"[11g] rows + {delta} (tables of {_nbytes(cp)} and "
+              f"{_nbytes(blocks)} B): K5 == plain == SA + {HIGH_WORD} on "
+              f"{rows.numel()} rows")
+
+        opt = MemOptions()
+        msl, cap = opt.min_seed_len, opt.max_smems_per_read
+        codes, lens_h = first_batch(fq)
+        q = torch.as_tensor(codes, device=dev)
+        lens = torch.as_tensor(lens_h, device=dev)
+        G = 2 * q.shape[0]
+        out = {}
+        for name, d in (("base", base), ("moved", moved)):
+            _, src_tab, r1s, r1e, r1n, total = plain._smem_r1_prep(
+                d, q, lens, min_seed_len=msl, split_len=opt.split_len,
+                split_width=opt.split_width, out_cap=cap)
+            lanes = plain._r2_lanes(src_tab, r1s, r1e, r1n, total, 0,
+                                    out_cap=cap, G=G)
+            out[name] = {
+                "r1": (k2.smem_round1_core, plain.smem_round1_chain,
+                       (d, q, lens), dict(min_seed_len=msl, cap=cap)),
+                "r2": (k2.smem_through_core, plain.smem_through_chain,
+                       (d, q, lens, *lanes), dict(min_seed_len=msl, cap=32)),
+                "r3": (k2.smem_round3_core, plain.smem_round3_chain,
+                       (d, q, lens), dict(min_seed_len=msl, cap=cap,
+                                          max_mem_intv=opt.max_mem_intv))}
+        for r in ("r1", "r2", "r3"):
+            core, ref, args, kw = out["moved"][r]
+            got = core(*args, **kw)
+            err = max(err, _same_smems(f"11g moved {r}", got, ref(*args,
+                                                                  **kw)))
+            core, _, args, kw = out["base"][r]
+            low = core(*args, **kw)
+            M = low.k.shape[1]
+            live = torch.arange(M, device=dev)[None] < low.n.clamp(
+                max=M)[:, None]
+            check(torch.equal(got.k[live], low.k[live] + delta)
+                  and torch.equal(got.l[live], low.l[live] + delta)
+                  and all(torch.equal(getattr(got, f), getattr(low, f))
+                          for f in ("s", "start", "end", "n", "overflow")),
+                  f"11g: K2 {r} on rows + delta == the unmoved index's + "
+                  "delta")
+            print(f"[11g] K2 {r}: rows + {delta}: kernel == plain on whole "
+                  f"buffers, == the unmoved index's + delta on "
+                  f"{int(live.sum())} SMEMs (k from "
+                  f"{int(got.k[live].min()) if live.any() else 0})")
+    return dict(max_abs_err=err)
+
+
+def phase_chr21(res: dict) -> None:
+    """Phase 11: the main path at chr21 scale (a)-(g); each comparison's
+    result joins `res`."""
+    t0 = time.monotonic()
+    fx = chr21_fixture()
+    se = chr21_se(fx)
+    pe = chr21_pe(fx)
+    k5_seen = chr21_modes(fx, se["body"])
+    # (e) every kernel of the path against its plain version on this index
+    res["smem_chain"].append(
+        phase_k2({"chr21": (fx["fa"], fx["fq"])}, prefix="11e")["chr21"])
+    for side, (a, k) in sorted(se["waves"].items()):
+        res["extend"].append(compare("extend", f"chr21 SE batch 1 {side} "
+                                     "core", a, k))
+    res["global_align"].append(ga_calls("chr21 SE", se["ga"]))
+    res["global_align"].append(ga_calls("chr21 PE", pe["ga"]))
+    res["localsw"].append(compare("localsw", "chr21 PE batch 1 first rescue "
+                                  "round", *pe["sw"]))
+    k5_calls(k5_seen, 5, tag="11e")
+    # (f) the card's dependent gathers on this index's tables
+    gather_rate(fx["idx"], tag="11f", beyond_l2=True)
+    # (g) values at and above 2^31
+    hw = phase_high_words(fx["idx"], fx["fq"])
+    res["smem_chain"].append(hw)
+    res["sa_sampled"].append(hw)
+    print(f"[11] chr21 scale in {time.monotonic() - t0:.1f} s (index build "
+          f"{fx['build_s']:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -2040,10 +2429,10 @@ def main() -> int:
                       for T in (1024, 256)]
     for kern, name, a, k in edge_sets():
         res[kern].append(compare(kern, name, a, k))
-    fa, fq = realistic_fixture()
+    fa, fq = se_fixture()
     pe_files = pe_fixture()
     res["smem_chain"] = [phase_k2({"se": (fa, fq),
-                                   "pe": (pe_files[0], pe_files[1])})]
+                                   "pe": (pe_files[0], pe_files[1])})["se"]]
     res["smem_chain"].append(phase_k2_edge())
     res["global_align"] = [phase_k3(), phase_k3_edge()]
     phase_golden()
@@ -2069,6 +2458,7 @@ def main() -> int:
     k5_launches = phase_index_modes(se, pe_files)
     phase_serving(se)
     phase_mesh(se, pe_files)
+    phase_chr21(res)
 
     check("jax" not in sys.modules, "the port ran without importing jax")
     check(not [m for m in sys.modules

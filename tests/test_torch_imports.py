@@ -1,5 +1,6 @@
 """The port stands alone: in a fresh interpreter, importing
-``tpubwa_torch.align.pipeline`` and ``tpubwa_torch.cli`` and aligning a
+``tpubwa_torch.align.pipeline``, ``tpubwa_torch.cli``,
+``tpubwa_torch.tools.big`` and ``tpubwa_torch.utils.gensim`` and aligning a
 few reads (sampled SA, two workers) and a few pairs on the CPU, with the
 fixture made by the port's own copies, leaves ``jax`` and every ``tpubwa``
 module out of ``sys.modules``; and no source of the port, nor
@@ -24,6 +25,8 @@ import torch
 torch.set_num_threads(1)
 import tpubwa_torch.align.pipeline
 import tpubwa_torch.cli
+import tpubwa_torch.tools.big
+import tpubwa_torch.utils.gensim
 from tpubwa_torch.index.fmindex import FMIndex
 from tpubwa_torch.io.fasta import Contig
 from tpubwa_torch.utils import sim

@@ -85,13 +85,13 @@ class DeviceIndex(NamedTuple):
             counts |= idx.cp_hi.astype(np.int64) << 32
         cp_wide[:, 0:4] = counts
         cp_wide[:, 4:8] = idx.cp[:, 4:8].view(np.uint32)
-        sa64 = (np.asarray([int(idx.sa_ls[0]) | (int(idx.sa_ms[0]) << 32)],
-                           np.int64) if sa_stub
-                else idx.sa.astype(np.int64))
-        return cls.from_numpy(dict(
-            cp=cp_wide, sa=sa64, pac_words=idx.pac_words,
-            L2=np.asarray(idx.L2).astype(np.int64),
+        di = cls.from_numpy(dict(
+            cp=cp_wide, sa=np.asarray([int(idx.sa_ls[0])
+                                       | (int(idx.sa_ms[0]) << 32)],
+                                      np.int64),
+            pac_words=idx.pac_words, L2=np.asarray(idx.L2).astype(np.int64),
             primary=idx.primary, l_pac=idx.l_pac), device)
+        return di if sa_stub else di._replace(sa=wide_sa(idx, device))
 
     @classmethod
     def from_numpy(cls, arrays: Mapping[str, np.ndarray],
@@ -106,6 +106,20 @@ class DeviceIndex(NamedTuple):
                    L2=_tensor(arrays["L2"], device),
                    primary=int(arrays["primary"]),
                    l_pac=int(arrays["l_pac"]))
+
+
+def wide_sa(idx: FMIndex, device, chunk: int = 1 << 26) -> torch.Tensor:
+    """The int64 suffix array of `idx` on `device`, made there from its
+    5-byte split storage a chunk of rows at a time: the host never holds
+    an int64 copy of the whole SA (19.2 GB at 1.2 Gbp)."""
+    n = idx.sa_ls.shape[0]
+    sa = torch.empty(n, dtype=torch.int64, device=device)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        ls = _tensor(idx.sa_ls[lo:hi], device).to(torch.int64) & _M32
+        ms = _tensor(idx.sa_ms[lo:hi], device).to(torch.int64)
+        sa[lo:hi] = ls | (ms << 32)
+    return sa
 
 
 class BiInterval(NamedTuple):

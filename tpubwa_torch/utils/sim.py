@@ -464,6 +464,35 @@ def sa_edge_rows(idx, shift: int) -> np.ndarray:
     return rows[rng.permutation(rows.size)]
 
 
+HIGH_WORD = (1 << 31) + 12_345   # >= 2^31, < 2^32: sets a low word's sign
+
+
+def high_word_index(idx, shift: int, offset: int = HIGH_WORD) -> dict:
+    """numpy arrays of a synthetic wide index made from the FM index `idx`
+    (the fields of ``ops.fm.DeviceIndex`` and ``ops.fm.SampledSA`` at
+    2^shift, wide dtypes): the occ counts of ``cp`` and the SA values
+    (``sa`` and the samples ``vals``) carry `offset`, and ``L2`` carries
+    ``-offset``, so that every LF step, ``L2[c] + occ``, lands on the row
+    it lands on in `idx`.  Occ counts, ``occ4`` and ``ext_core``'s
+    intermediate counts and the looked-up positions then lie at or above
+    2^31 (below the 2^32 that a 1.2 Gbp text's rows reach), while every
+    row stays a row of `idx`: ``sa_lookup_sampled`` of a row gives its SA
+    value plus `offset`."""
+    import torch
+
+    from tpubwa_torch.ops.fm import DeviceIndex, build_sampled_sa
+
+    di = DeviceIndex.from_host(idx, "cpu", wide=True)
+    ss = build_sampled_sa(None, shift, True, idx=idx, device="cpu")
+    cp = di.cp.numpy().copy()
+    cp[:, 0:4] += offset
+    return dict(cp=cp, sa=di.sa.numpy() + offset,
+                pac_words=di.pac_words.numpy(),
+                L2=di.L2.numpy() - offset, primary=di.primary,
+                l_pac=di.l_pac, blocks=ss.blocks.numpy(),
+                vals=(ss.vals.to(torch.int64) + offset).numpy())
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="simulate reads from a FASTA")
     ap.add_argument("ref")

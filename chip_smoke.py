@@ -224,14 +224,6 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout
-    return out.strip().splitlines()[0]
-
-
 def _sync(device: str = "cuda") -> None:
     import torch
 
@@ -697,12 +689,14 @@ def _same_smems(tag: str, got, want) -> int:
     return same_fields(f"K2 == plain, {tag}", got, want)
 
 
-def phase_k2(fixtures: dict, prefix: str = "k2") -> dict:
+def phase_k2(fixtures: dict, prefix: str = "k2",
+             layouts: tuple = (False, True)) -> dict:
     """K2 against the plain chains on the first batch of each fixture
-    ({"se": (fa, fq), "pe": (fa, fq1)}), narrow and wide; returns each
-    fixture's kernels-line entry (times and bound of the three rounds on
-    its first batch, narrow) by name.  Every fixture but phase 4's random
-    genome must reach the overflow path at the small caps."""
+    ({"se": (fa, fq), "pe": (fa, fq1)}) in each layout of `layouts`
+    (False: narrow, True: wide); returns each fixture's kernels-line entry
+    (times and bound of the three rounds on its first batch, in the first
+    layout) by name.  Every fixture but phase 4's random genome must reach
+    the overflow path at the small caps."""
     import torch
 
     from tpubwa_torch.config import MemOptions
@@ -723,9 +717,9 @@ def phase_k2(fixtures: dict, prefix: str = "k2") -> dict:
             lens = torch.as_tensor(lens_h, device=dev)
             B = q.shape[0]
             G = 2 * B
-            for wide in (False, True):
+            for wide in layouts:
                 layout = "wide" if wide else "narrow"
-                di = DeviceIndex.from_host(idx, dev, wide=wide)
+                di = DeviceIndex.from_host(idx, dev, wide=wide, sa_stub=True)
                 tag = f"{name} {layout}"
                 steps = {r: torch.zeros(G if r == "r2" else B,
                                         dtype=torch.int32, device=dev)
@@ -790,7 +784,7 @@ def phase_k2(fixtures: dict, prefix: str = "k2") -> dict:
                           f"{ms[r]:.3f} ms / {mx} steps = "
                           f"{1e3 * ms[r] / max(mx, 1):.3f} us a step on the "
                           "longest chain")
-                if not wide:
+                if wide == layouts[0]:
                     # each step reads two checkpoint rows; what the table
                     # holds is read at most once, the rest is reuse
                     row_b = di.cp.element_size() * 8
@@ -2271,7 +2265,8 @@ def phase_high_words(idx, fq: str, device: str = "cuda") -> dict:
     checkpoint and directory rows in front, L2 and primary + delta):
     K2's three rounds == plain, and their intervals == those on the
     unmoved index + delta; K5 on the moved rows == plain == the SA + the
-    offset."""
+    offset.  K2 does not run on (1): it starts an interval at L2[c],
+    which (1) lowers by the offset, so the rows would be negative."""
     import torch
 
     from tpubwa_torch.config import MemOptions
@@ -2413,8 +2408,11 @@ def main() -> int:
         tpubwa_torch.__file__))) == ROOT,
         f"tpubwa_torch is imported from this checkout ({ROOT})")
 
+    from tpubwa_torch.tools.big import card_line
+
     t_start = time.monotonic()
     card = card_line()
+    check(card is not None, "nvidia-smi reads the card's name and limit")
     print(card)
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {kind}; torch {torch.__version__}, CUDA "

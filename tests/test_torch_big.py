@@ -31,13 +31,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     work = str(tmp_path_factory.mktemp("big"))
-    argv = ["--ref-len", str(REF_LEN), "--n-reads", str(N_READS), "--batch",
-            str(BATCH), "--device", "cpu", "--work", work]
+    argv = ["--ref-len", str(REF_LEN), "--n-reads", str(N_READS),
+            "--device", "cpu", "--work", work]
     return work, argv
 
 
-def test_big_main_record(run, capsys):
+def test_big_main_record(run, capsys, monkeypatch):
     work, argv = run
+    monkeypatch.setattr(big, "BATCH_READS", BATCH)   # the buffers' size
     assert big.main(argv) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     brec, srec = json.loads(lines[-2]), json.loads(lines[-1])

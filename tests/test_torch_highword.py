@@ -8,7 +8,11 @@ rows.  On the same numpy arrays the port's plain ``occ4``, ``ext_core``,
 each equals the function on the small index with the offset put back:
 occ counts and looked-up positions are the small index's plus the offset,
 ``ext_core``'s intervals and ``lf_step``'s rows are the small index's.
-``chip_smoke.py`` phase 11(g) runs K2 and K5 on such arrays on the card.
+``chip_smoke.py`` phase 11(g) runs K5 on such arrays on the card.  K2
+does not run on them: it starts each interval at ``L2[c]``, which these
+arrays lower by the offset, so its rows would be negative.  Phase 11(g)
+runs K2 on the same index with every row moved up past 2^31 instead, and
+``chip_big.py`` on the 1.2 Gbp index, whose rows pass 2^31.
 
 The JAX side runs under jax x64, switched on and off inside
 ``try``/``finally`` so that it cannot leak into another file.

@@ -34,7 +34,8 @@ from tpubwa_torch.native import load_native
 from tpubwa_torch.ops import (extend_cuda, global_align_cuda, localsw_cuda,
                               sa_sampled_cuda, smem_chain_cuda)
 from tpubwa_torch.ops.extend_cuda import extend_core, extend_core_b
-from tpubwa_torch.ops.fm import DeviceIndex, ShardedSA, build_sampled_sa
+from tpubwa_torch.ops.fm import (DeviceIndex, ShardedSA, build_sampled_sa,
+                                 wide_layout)
 from tpubwa_torch.ops.seeds import seed_rows_mesh
 from tpubwa_torch.ops.smem_chain import collect_smems_mesh
 from tpubwa_torch.parallel.mesh import make_mesh, resolve_device  # noqa: F401
@@ -47,6 +48,17 @@ from tpubwa_torch.utils.timers import PhaseTimers
 # function
 EXT_CORES = {"t": extend_core, "b": extend_core_b}
 _EXT_SOURCES = {"t": "extend", "b": "extend_b"}
+
+
+def build_kernels(ext_layout: str = "t", sampled: bool = False) -> None:
+    """Build the kernels a run on a card launches (nvcc, once a source):
+    the extension layout's, K4, K2, K3, and K5 under a sampled SA."""
+    extend_cuda.build(_EXT_SOURCES[ext_layout])
+    localsw_cuda.build()
+    smem_chain_cuda.build()
+    global_align_cuda.build()
+    if sampled:
+        sa_sampled_cuda.build()
 
 
 class SeedHandle(NamedTuple):
@@ -103,7 +115,7 @@ class Aligner:
         self.mat = self.opt.score_matrix()
         self.contig_offsets = np.array([c.offset for c in idx.contigs],
                                        dtype=np.int64)
-        wide = idx.seq_len + 1 >= 1 << 31
+        wide = wide_layout(idx)
         shift = self.opt.sa_sample_shift
         # one copy of the index a distinct device; under a sampled or a
         # sharded SA the full-resolution SA is not copied
@@ -124,12 +136,7 @@ class Aligner:
         self._ovf_lock = threading.Lock()  # -t workers share this Aligner
         # the kernels are one library a source for every card
         if any(dev.type == "cuda" for dev in self.mesh.distinct):
-            extend_cuda.build(_EXT_SOURCES[ext_layout])
-            localsw_cuda.build()
-            smem_chain_cuda.build()
-            global_align_cuda.build()
-            if shift:
-                sa_sampled_cuda.build()
+            build_kernels(ext_layout, sampled=bool(shift))
         self._mats = {dev: self._put(self.mat, dev)
                       for dev in self.mesh.distinct}
         self.mat_dev = self._mats[self.device]

@@ -53,6 +53,12 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(a, device=device)
 
 
+def wide_layout(idx: FMIndex) -> bool:
+    """Whether the index text of `idx` needs the wide (int64) layout:
+    seq_len + 1 >= 2^31."""
+    return idx.seq_len + 1 >= 1 << 31
+
+
 class DeviceIndex(NamedTuple):
     """Device-resident FM-index tensors (narrow or wide layout)."""
 
@@ -71,7 +77,7 @@ class DeviceIndex(NamedTuple):
         ``sa_stub`` keeps only ``sa[:1]`` (sampled-SA serving resolves
         positions through a ``SampledSA`` instead)."""
         if wide is None:
-            wide = idx.seq_len + 1 >= 1 << 31
+            wide = wide_layout(idx)
         if not wide:
             return cls.from_numpy(dict(
                 cp=idx.cp.astype(np.int32),

@@ -7,8 +7,8 @@ The port of the JAX package's ``scripts/build_big.py`` and
 served from one device at ``--sa-shift 5``.
 
   python -m tpubwa_torch.tools.big [--ref-len N] [--sa-shift S]
-                                   [--n-reads N] [--batch B]
-                                   [--device cuda|cpu] [--work DIR]
+                                   [--n-reads N] [--device cuda|cpu]
+                                   [--work DIR]
 
 Build step (skipped for what ``--work`` already holds): the genome and its
 FASTA, the index (``read_fasta`` + ``FMIndex.build``, which is
@@ -19,10 +19,10 @@ bp at 1 % error (``sim.simulate_reads``, seed 17).  Its record has
 
 Serve step: the index is loaded, put on ``--device`` (``--sa-shift 0``:
 the full SA) and the reads aligned twice (``run_se_pipeline``,
-``--batch`` reads a batch, 8192 by default: the size of every batch's
-buffers).  Its record has the fields of ``BENCH_r05_big.json``
-(``index_load_s``, ``device_setup_s``, ``first_pass_s``, ``sam_records``,
-``warm_pass_s``, ``reads_per_sec_warm``, ``mapped_near_truth_frac``) and
+``BATCH_READS`` reads a batch).  Its record has the fields of
+``BENCH_r05_big.json`` (``index_load_s``, ``device_setup_s``,
+``first_pass_s``, ``sam_records``, ``warm_pass_s``,
+``reads_per_sec_warm``, ``mapped_near_truth_frac``) and
 ``device_bytes``, ``card`` and ``sam_body_sha256``.  ``sam_records``
 counts every line the pipeline writes (it writes no header), and
 ``mapped_near_truth_frac`` is the share of those lines placed within 50 bp
@@ -53,6 +53,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 READ_LEN, READ_ERR, READ_SEED, GENOME_SEED = 150, 0.01, 17, 1234
+REF_LEN, N_READS = 1_200_000_000, 20_000      # run_big.py's run
+BATCH_READS = 8192      # run_big.py's batch: the size of every batch's buffers
 
 
 def _peak_rss_gb() -> float:
@@ -70,6 +72,7 @@ def build(ref_len: int, n_reads: int, work: str) -> dict:
     ran this time)."""
     from tpubwa_torch.index.fmindex import INDEX_SUFFIX, FMIndex
     from tpubwa_torch.io.fasta import read_fasta
+    from tpubwa_torch.ops.fm import wide_layout
     from tpubwa_torch.utils import gensim, sim
 
     os.makedirs(work, exist_ok=True)
@@ -94,7 +97,7 @@ def build(ref_len: int, n_reads: int, work: str) -> dict:
         t = time.monotonic()
         idx.save(fa)
         rec["save_s"] = round(time.monotonic() - t, 1)
-        rec["wide"] = idx.seq_len + 1 >= 1 << 31
+        rec["wide"] = wide_layout(idx)
         rec["seq_len"] = idx.seq_len
         rec["peak_rss_gb"] = _peak_rss_gb()
         del idx, holes
@@ -143,17 +146,6 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _build_kernels() -> None:
-    from tpubwa_torch.ops import (extend_cuda, global_align_cuda,
-                                  localsw_cuda, sa_sampled_cuda,
-                                  smem_chain_cuda)
-
-    for build_one in (extend_cuda.build, localsw_cuda.build,
-                      smem_chain_cuda.build, global_align_cuda.build,
-                      sa_sampled_cuda.build):
-        build_one()
-
-
 def device_bytes(aligner) -> dict:
     """Bytes of the index tensors and sampled-SA tables on the device."""
     di, ss = aligner.di, aligner.ss
@@ -168,11 +160,12 @@ def device_bytes(aligner) -> dict:
 
 
 def serve(fa: str, fq: str, shift: int, n_reads: int, device,
-          wide: bool | None = None, batch_reads: int = 8192
+          wide: bool | None = None, batch_reads: int = BATCH_READS
           ) -> tuple[dict, str]:
     """The serve step; returns its record and the SAM body.  ``wide``
     forces a layout (None: the index's own)."""
-    from tpubwa_torch.align.pipeline import Aligner, run_se_pipeline
+    from tpubwa_torch.align.pipeline import (Aligner, build_kernels,
+                                             run_se_pipeline)
     from tpubwa_torch.config import MemOptions
     from tpubwa_torch.index.fmindex import FMIndex
     from tpubwa_torch.ops.fm import DeviceIndex, build_sampled_sa
@@ -182,7 +175,7 @@ def serve(fa: str, fq: str, shift: int, n_reads: int, device,
     rec: dict = {"sa_shift": shift, "n_reads": n_reads}
     if dev.type == "cuda":      # nvcc's time stays out of device_setup_s
         t = time.monotonic()
-        _build_kernels()
+        build_kernels(sampled=bool(shift))
         rec["kernel_build_s"] = round(time.monotonic() - t, 1)
     t = time.monotonic()
     idx = FMIndex.load(fa)
@@ -234,12 +227,10 @@ def main(argv=None) -> int:
         prog="python -m tpubwa_torch.tools.big",
         description="Build a realistic synthetic genome of real size and "
         "serve it on one device.")
-    ap.add_argument("--ref-len", type=int, default=1_200_000_000)
+    ap.add_argument("--ref-len", type=int, default=REF_LEN)
     ap.add_argument("--sa-shift", type=int, default=5,
                     help="sampled SA interval 2^S (0: the full SA)")
-    ap.add_argument("--n-reads", type=int, default=20_000)
-    ap.add_argument("--batch", type=int, default=8192,
-                    help="reads a device batch")
+    ap.add_argument("--n-reads", type=int, default=N_READS)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--work", default=os.path.join(ROOT, ".bench"))
     args = ap.parse_args(argv)
@@ -256,7 +247,7 @@ def main(argv=None) -> int:
         json.dump(brec, f, indent=1)
     fa, fq = paths(args.work, args.ref_len, args.n_reads)
     srec, _ = serve(fa, fq, args.sa_shift, args.n_reads, args.device,
-                    batch_reads=args.batch)
+                    batch_reads=BATCH_READS)
     with open(os.path.join(args.work, f"serve_{args.ref_len}_s"
                            f"{args.sa_shift}.json"), "w") as f:
         json.dump(srec, f, indent=1)

@@ -132,6 +132,24 @@ Phases (any failure exits non-zero):
    SA values + 2^31 + 12,345), and K2's three rounds and K5 on the index
    with its rows moved up by 2^31 + 12,352 (against the plain versions
    and the unmoved index's results).
+12. The per-read and fused paths.  (a) The first batch of phase 4's SE
+   reads and of phase 5's read-1 ends (repeats, multi-region) through
+   Aligner.seed_batch -> chain_batch (native chaining) ->
+   extend_batch_rounds (one extend_read generator a read, lockstep
+   rounds of extend_seed_batch) under layouts t (K1) and b (K1b), each
+   run counted (rounds, lanes in the first and last round, K1 / K1b / K2
+   launches, seconds, the phase table): regions equal to the flat
+   engine's regions_batch field for field, and the native chains equal
+   to chain_read + filter_chains.  (b) parallel.mesh.device_align_step on
+   SE batch 1 at 8,192 x 160 (K2 and K1 launched, CUDA-event ms): its
+   seed slots equal smems_to_seeds', its compact_seeds rows equal
+   seed_rows' on the reads that hit no cap, its scores equal the plain
+   _extend_core on the same windows (and K1 is compared there), and
+   sharded_align_step on ["cuda:0"] * 4 equals one device.  (c) K1 and
+   K1b against the scalar oracle extend_ref on 512 random jobs, K2
+   against fm_ref.collect_smems on 64 reads of SE batch 1.  (d) An index
+   built by NumPy prefix doubling equals the native SA-IS build (200 kb,
+   host only).
 
 Before the last line: one JSON line of the seven kernels (launches on the
 path that runs them, agreement, kernel / plain / bound times), then the
@@ -2395,6 +2413,322 @@ def phase_chr21(res: dict) -> None:
           f"{fx['build_s']:.1f} s)")
 
 
+# --------------------------------------------------------------- 12 ----
+
+# reads of each first batch that the per-read path runs (phase 12(a))
+PER_READ_READS = {"SE": BATCH, "PE read 1": BATCH}
+
+
+def _reg_rows(regs) -> list:
+    import dataclasses
+
+    return [[dataclasses.astuple(r) for r in rl] for rl in regs]
+
+
+def _chain_rows(chains_per_read) -> list:
+    return [[(c.pos, c.rid, c.w, c.frac_rep,
+              [(s.rbeg, s.qbeg, s.len) for s in c.seeds]) for c in chains]
+            for chains in chains_per_read]
+
+
+def _counted_rounds(lanes: list):
+    """Context manager: the Aligner's round loop runs as it is, and the
+    lanes of each of its rounds are kept in `lanes`."""
+    import contextlib
+
+    from tpubwa_torch.align import pipeline
+
+    real = pipeline.run_extension_rounds
+
+    def counting(gens, opt, extend_round, *a, **kw):
+        def counted(round_lanes):
+            lanes.append(len(round_lanes["h0"]))
+            return extend_round(round_lanes)
+        return real(gens, opt, counted, *a, **kw)
+
+    @contextlib.contextmanager
+    def cm():
+        pipeline.run_extension_rounds = counting
+        try:
+            yield
+        finally:
+            pipeline.run_extension_rounds = real
+
+    return cm()
+
+
+def python_chains(al, rows: np.ndarray, l_rep: np.ndarray, lens) -> list:
+    """chain_read + filter_chains (the Python reference) of each read."""
+    from tpubwa_torch.align import chain
+
+    opt = al.opt
+    bounds = np.searchsorted(rows[:, 0], np.arange(len(lens) + 1))
+    out = []
+    for b in range(len(lens)):
+        if lens[b] < opt.min_seed_len:
+            out.append([])
+            continue
+        seeds = [chain.Seed(int(r[1]), int(r[2]), int(r[3]), int(r[3]))
+                 for r in rows[bounds[b]:bounds[b + 1]]]
+        out.append(chain.filter_chains(opt, chain.chain_read(
+            opt, al.idx.l_pac, al.contig_offsets, seeds, int(lens[b]),
+            int(l_rep[b]))))
+    return out
+
+
+def per_read_batch(tag: str, fa: str, fq: str,
+                   device: str = "cuda") -> dict:
+    """12(a): the first batch of `fq` through seed_batch -> chain_batch ->
+    extend_batch_rounds under layouts t and b, each run counted; the
+    regions equal the flat engine's (regions_batch) field for field, and
+    the native chains equal chain_read + filter_chains.  Returns the
+    launches of each layout's run."""
+    import dataclasses
+
+    from tpubwa_torch.align.pipeline import Aligner
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.io.fastq import stream_batches
+
+    idx = FMIndex.load(fa)
+    opt = MemOptions(batch_reads=BATCH)
+    batch = next(iter(stream_batches(fq, BATCH, opt.max_read_len)))
+    n = PER_READ_READS[tag]
+    if n < batch.n:
+        print(f"[12a] {tag}: cut to the batch's first {n} of {batch.n} "
+              "reads (the per-read path is host Python)")
+        batch = dataclasses.replace(
+            batch, codes=batch.codes[:n], lens=batch.lens[:n],
+            names=batch.names[:n], seqs=batch.seqs[:n],
+            quals=batch.quals[:n])
+    flat = None
+    out = {}
+    for layout, kern, other in (("t", "extend", "extend_b"),
+                                ("b", "extend_b", "extend")):
+        al = Aligner(idx, opt, device=device, ext_layout=layout)
+        if flat is None:
+            t = time.monotonic()
+            flat = _reg_rows(al.regions_batch(batch))
+            flat_s = time.monotonic() - t
+        al.timers = type(al.timers)()
+        lanes: list = []
+        with _counted_rounds(lanes):
+            _sync(device)
+            reset_launches()
+            t = time.monotonic()
+            rows, l_rep = al.seed_batch(batch.codes, batch.lens)
+            chains = al.chain_batch(rows, l_rep, batch.lens)
+            regs = al.extend_batch_rounds(batch.codes, batch.lens, chains)
+            _sync(device)
+            secs = time.monotonic() - t
+            launches = read_launches()
+        got = _reg_rows(regs[:batch.n])
+        check(got == flat, f"12a {tag}, layout {layout}: per-read regions "
+              "== the flat engine's, field for field")
+        check(launches[kern] > 0 and launches[other] == 0,
+              f"12a {tag}, layout {layout}: the rounds launched {kern}")
+        check(launches["smem_chain"] > 0, f"12a {tag}: K2 launched")
+        print(f"[12a] {tag}, layout {layout}: {batch.n} reads, "
+              f"{sum(map(len, got))} regions == the flat engine's field "
+              f"for field ({flat_s:.2f} s there); {len(lanes)} rounds, "
+              f"{lanes[0]} lanes in the first, {lanes[-1]} in the last, "
+              f"{sum(lanes)} in all; launches K1 {launches['extend']}, K1b "
+              f"{launches['extend_b']}, K2 {launches['smem_chain']}; "
+              f"{secs:.2f} s")
+        print_phases("12a", al.timers)
+        out[layout] = launches
+        if layout == "t":
+            t = time.monotonic()
+            py = python_chains(al, rows, l_rep, batch.lens)
+            check(_chain_rows(chains) == _chain_rows(py),
+                  f"12a {tag}: native chains == chain_read + filter_chains")
+            print(f"[12a] {tag}: native chains == chain_read + "
+                  f"filter_chains on all {batch.n} reads "
+                  f"({sum(map(len, py))} chains; Python "
+                  f"{time.monotonic() - t:.2f} s)")
+    return out
+
+
+def phase_step(fa: str, fq: str, device: str = "cuda") -> dict:
+    """12(b): device_align_step on SE batch 1 at full width; returns K1's
+    comparison on its windows and the step's launches."""
+    import torch
+
+    from tpubwa_torch.align.pipeline import Aligner
+    from tpubwa_torch.config import MemOptions
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.ops.extend import _extend_core
+    from tpubwa_torch.ops.seeds import (compact_seeds, seed_rows,
+                                        smems_to_seeds)
+    from tpubwa_torch.ops.smem_chain import collect_smems_chain
+    from tpubwa_torch.parallel.mesh import (STEP_EXT, device_align_step,
+                                            make_mesh, sharded_align_step,
+                                            step_windows)
+
+    opt = MemOptions(batch_reads=BATCH)
+    al = Aligner(FMIndex.load(fa), opt, device=device)
+    codes, lens = first_batch(fq)
+    c = torch.as_tensor(codes, device=device)
+    n = torch.as_tensor(lens, device=device)
+    B, L = codes.shape
+
+    def step():
+        return device_align_step(al.di, c, n, al.mat_dev)
+
+    _sync(device)
+    reset_launches()
+    out, cold_ms = _timed(step)
+    launches = read_launches()
+    check(launches["smem_chain"] > 0 and launches["extend"] > 0,
+          "12b: device_align_step launched K2 and K1")
+    with keep_launches():
+        ms = _cuda_ms(step, reps=3)
+        # its pieces on the same batch
+        sm = collect_smems_chain(al.di, c, n, min_seed_len=opt.min_seed_len)
+        sb = smems_to_seeds(al.di, sm, max_occ=opt.max_occ, out_seeds=64)
+        for f, g, w in zip(("rbeg", "qbeg", "len", "valid"), out, sb):
+            check(torch.equal(g, w), f"12b: the step's {f} == "
+                  "smems_to_seeds'")
+        cs = compact_seeds(sb)
+        sr = seed_rows(al.di, sm, max_occ=opt.max_occ,
+                       per_read_cap=opt.max_seeds_per_read)
+        ok = ~(sb.overflow | sm.overflow | sr.overflow).cpu().numpy()
+        a = cs.packed[:int(cs.n)].cpu().numpy()
+        b = sr.packed[:int(sr.n)].cpu().numpy()
+        check(np.array_equal(a[ok[a[:, 0]]], b[ok[b[:, 0]]]),
+              "12b: compact_seeds rows == seed_rows on reads with no cap")
+        check(torch.equal(cs.l_rep, sr.l_rep), "12b: l_rep == seed_rows'")
+        args = step_windows(al.di, c, n, sb, al.mat_dev)
+        plain = _extend_core(*args, **STEP_EXT)
+        check(torch.equal(out[4], plain.score),
+              "12b: the step's scores == the plain _extend_core's")
+        k1 = compare("extend", "device_align_step's windows", args,
+                     STEP_EXT)
+        mesh = make_mesh(None, [device + ":0" if device == "cuda"
+                                else device] * 4)
+        sh, sh_ms = _timed(lambda: sharded_align_step(mesh, al.di, codes,
+                                                      lens, al.mat))
+        for f, g, w in zip(("rbeg", "qbeg", "len", "valid", "score"), sh,
+                           out):
+            check(torch.equal(g, w), f"12b: four shards' {f} == one "
+                  "device's")
+    print(f"[12b] device_align_step, B={B} L={L}: {int(cs.n)} seed rows, "
+          f"{int(ok.sum())} reads without a cap, rows == seed_rows' there; "
+          f"scores == plain on {int((out[4] > 0).sum())} reads with a "
+          f"seed; launches K2 {launches['smem_chain']}, K1 "
+          f"{launches['extend']}; {cold_ms:.3f} ms cold, {ms:.3f} ms warm "
+          f"(CUDA events); 4 shards on cuda:0 == one device "
+          f"({sh_ms:.3f} ms)")
+    return dict(k1=k1, launches=launches, ms=ms)
+
+
+def phase_oracles(fa: str, fq: str, device: str = "cuda") -> dict:
+    """12(c): K1 and K1b against extend_ref on 512 random jobs; K2 against
+    fm_ref.collect_smems on 64 reads of SE batch 1.  Returns each
+    kernel's max |err|."""
+    import torch
+
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.ops import fm_ref
+    from tpubwa_torch.ops.extend_cuda import extend_core, extend_core_b
+    from tpubwa_torch.ops.extend_ref import extend_ref
+    from tpubwa_torch.ops.fm import DeviceIndex
+    from tpubwa_torch.ops.smem_chain import collect_smems_chain
+
+    errs = {}
+    args, kw = random_jobs(0, J_RAND, Q_RAND, T_RAND)
+    J = 512
+    query, qlen, target, tlen, mat, w, h0, bonus = (
+        a[:J] if a.ndim and a.shape[0] == J_RAND else a for a in args)
+    t = time.monotonic()
+    want = np.array([list(vars(extend_ref(
+        query[j, :qlen[j]].astype(np.uint8),
+        target[j, :tlen[j]].astype(np.uint8), mat, kw["o_del"],
+        kw["e_del"], kw["o_ins"], kw["e_ins"], int(w[j]), int(bonus[j]),
+        kw["zdrop"], int(h0[j]))).values()) for j in range(J)])
+    ref_s = time.monotonic() - t
+    dev_args = tuple(torch.as_tensor(a, device=device) for a in
+                     (query, qlen, target, tlen, mat, w, h0, bonus))
+    with keep_launches():
+        for name, fn in (("extend", extend_core), ("extend_b",
+                                                   extend_core_b)):
+            got = torch.stack(list(fn(*dev_args, **kw))).T.cpu().numpy()
+            errs[name] = int(np.abs(got.astype(np.int64) - want).max())
+            check(errs[name] == 0, f"12c: {name} == extend_ref on {J} jobs")
+    print(f"[12c] K1 and K1b == extend_ref on {J} random jobs (Q={Q_RAND} "
+          f"T={T_RAND}), all six fields; the oracle {ref_s:.1f} s on the "
+          "host")
+
+    idx = FMIndex.load(fa)
+    codes, lens = first_batch(fq)
+    di = DeviceIndex.from_host(idx, device)
+    with keep_launches():
+        sm = collect_smems_chain(di, torch.as_tensor(codes, device=device),
+                                 torch.as_tensor(lens, device=device))
+        fields = [f.cpu().numpy() for f in sm[:5]]
+        nm = sm.n.cpu().numpy()
+        ovf = sm.overflow.cpu().numpy()
+    t = time.monotonic()
+    n_mems = 0
+    for b in range(64):
+        check(not ovf[b], f"12c: read {b} within the SMEM cap")
+        want_b = [(m.k, m.l, m.s, m.start, m.end)
+                  for m in fm_ref.collect_smems(idx, codes[b],
+                                                int(lens[b]))]
+        got_b = list(zip(*(f[b, :nm[b]].tolist() for f in fields)))
+        check(got_b == want_b, f"12c: K2 == fm_ref.collect_smems, read {b}")
+        n_mems += len(want_b)
+    errs["smem_chain"] = 0
+    print(f"[12c] K2 (collect_smems_chain on the whole batch) == "
+          f"fm_ref.collect_smems on its first 64 reads: {n_mems} SMEMs "
+          f"(k, l, s, start, end); the oracle {time.monotonic() - t:.1f} s "
+          "on the host")
+    return errs
+
+
+def phase_suffix_array() -> None:
+    """12(d): an index built by NumPy prefix doubling == the native
+    SA-IS build, 200 kb genome (host only)."""
+    from tpubwa_torch.index.fmindex import FMIndex
+    from tpubwa_torch.io.fasta import Contig
+
+    codes = np.random.default_rng(12).integers(0, 4, 200_000).astype(
+        np.uint8)
+    contigs = [Contig("c1", codes.size, 0)]
+    t = time.monotonic()
+    a = FMIndex.build(contigs, codes, use_native=False)
+    t_np = time.monotonic() - t
+    t = time.monotonic()
+    b = FMIndex.build(contigs, codes, use_native=True)
+    t_nat = time.monotonic() - t
+    for f in ("sa_ls", "sa_ms", "cp", "L2"):
+        check(np.array_equal(getattr(a, f), getattr(b, f)),
+              f"12d: {f} by doubling == native")
+    check(a.primary == b.primary, "12d: primary by doubling == native")
+    print(f"[12d] 200 kb genome: the index by NumPy prefix doubling == "
+          f"native SA-IS (SA, checkpoints, L2, primary); {t_np:.2f} s vs "
+          f"{t_nat:.2f} s")
+
+
+def phase_per_read_fused(fa: str, fq: str, pe_files: tuple, res: dict,
+                         card: str) -> dict:
+    """Phase 12 (a)-(d); the oracles' errors join `res`.  Returns the
+    launches of the per-read runs and of the device step."""
+    t0 = time.monotonic()
+    per_read = {"SE": per_read_batch("SE", fa, fq),
+                "PE read 1": per_read_batch("PE read 1", pe_files[0],
+                                            pe_files[1])}
+    step = phase_step(fa, fq)
+    res["extend"].append(step["k1"])
+    errs = phase_oracles(fa, fq)
+    for k, e in errs.items():
+        res[k].append(dict(max_abs_err=e))
+    phase_suffix_array()
+    print(f"[12] per-read and fused paths in {time.monotonic() - t0:.1f} s "
+          f"on {card}")
+    return dict(per_read=per_read, step=step["launches"])
+
+
 def main() -> int:
     import torch
 
@@ -2457,6 +2791,7 @@ def main() -> int:
     phase_serving(se)
     phase_mesh(se, pe_files)
     phase_chr21(res)
+    new_paths = phase_per_read_fused(fa, fq, pe_files, res, card)
 
     check("jax" not in sys.modules, "the port ran without importing jax")
     check(not [m for m in sys.modules
@@ -2480,6 +2815,9 @@ def main() -> int:
                     localsw=pe_launches["localsw"],
                     sa_sampled=k5_launches["sa_sampled"])
     print(f"[launches] SE counted run: {se['launches']}")
+    print(f"[launches] phase 12: per-read path "
+          f"{json.dumps(new_paths['per_read'])}; device_align_step "
+          f"{new_paths['step']}")
     timing = dict(extend=res["extend"][0], extend_b=res["extend_b"][0],
                   extend_b_variant=res["extend_b_variant"][0],
                   smem_chain=res["smem_chain"][0], global_align=ga_real,

@@ -166,8 +166,9 @@ def test_native_library_builds_into_the_build_directory():
            if f.startswith("libtpubwa_native_") and f.endswith(".so")]
     assert sos, os.listdir(cuda_build.BUILD_DIR)
     assert not [f for f in os.listdir(nbuild._DIR) if f.endswith(".so")]
-    for fn in ("sais_u8", "bwt_from_sa", "ext_prepare", "ext_finalize",
-               "ext_phase1", "ext_missing", "sam_emit_se"):
+    for fn in ("sais_u8", "bwt_from_sa", "chain_filter_batch",
+               "ext_prepare", "ext_finalize", "ext_phase1", "ext_missing",
+               "sam_emit_se"):
         assert getattr(lib, fn).argtypes is not None
 
 
@@ -197,8 +198,8 @@ def test_failed_native_build_raises(tmp_path, monkeypatch, fault):
     assert len(calls) == 1 and calls[0][0] == "g++"
     assert "-O3" in calls[0] and "-march=native" in calls[0]
     assert sorted(os.path.basename(a) for a in calls[0]
-                  if a.endswith(".cpp")) == ["extension.cpp", "sais.cpp",
-                                             "samemit.cpp"]
+                  if a.endswith(".cpp")) == ["chain.cpp", "extension.cpp",
+                                             "sais.cpp", "samemit.cpp"]
     if fault == "fails":
         assert os.listdir(tmp_path / "b") == []
     assert nbuild._lib is None

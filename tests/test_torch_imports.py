@@ -1,9 +1,11 @@
 """The port stands alone: in a fresh interpreter, importing
 ``tpubwa_torch.align.pipeline``, ``tpubwa_torch.cli``,
-``tpubwa_torch.tools.big`` and ``tpubwa_torch.utils.gensim`` and aligning a
-few reads (sampled SA, two workers) and a few pairs on the CPU, with the
-fixture made by the port's own copies, leaves ``jax`` and every ``tpubwa``
-module out of ``sys.modules``; and no source of the port, nor
+``tpubwa_torch.tools.big``, ``tpubwa_torch.utils.gensim`` and the modules of
+the per-read path, the fused device step and the oracles, aligning a few
+reads (sampled SA, two workers) and a few pairs on the CPU, and running the
+per-read path and ``device_align_step`` on those reads, with the fixture
+made by the port's own copies, leaves ``jax`` and every ``tpubwa`` module
+out of ``sys.modules``; and no source of the port, nor
 ``chip_smoke.py``, imports ``tpubwa``.  Also the CLI's refusals: no silent CPU
 fallback for ``--device cuda`` without a card, the JAX CLI's checks of
 ``--hosts``, and a device mesh refused in one line where its devices do
@@ -27,6 +29,9 @@ import tpubwa_torch.align.pipeline
 import tpubwa_torch.cli
 import tpubwa_torch.tools.big
 import tpubwa_torch.utils.gensim
+import tpubwa_torch.align.chain, tpubwa_torch.align.region
+import tpubwa_torch.ops.extend_ref, tpubwa_torch.ops.fm_ref
+import tpubwa_torch.parallel.mesh
 from tpubwa_torch.index.fmindex import FMIndex
 from tpubwa_torch.io.fasta import Contig
 from tpubwa_torch.utils import sim
@@ -47,6 +52,18 @@ sim.write_fastq(d + "/p2.fq", r2)
 rc = tpubwa_torch.cli.main(["mem", "--device", "cpu", "--ext-layout", "b",
                             d + "/ref.fa", d + "/p1.fq", d + "/p2.fq"])
 assert rc == 0, rc
+from tpubwa_torch.align.pipeline import Aligner
+from tpubwa_torch.io.fastq import batch_reads, read_fastq
+from tpubwa_torch.parallel.mesh import device_align_step
+al = Aligner(FMIndex.load(d + "/ref.fa"), device="cpu")
+batch = next(batch_reads(list(read_fastq(d + "/r.fq")), 12, 160))
+rows, l_rep = al.seed_batch(batch.codes, batch.lens)
+regs = al.extend_batch_rounds(batch.codes, batch.lens,
+                              al.chain_batch(rows, l_rep, batch.lens))
+assert sum(map(len, regs)) >= 10, regs
+step = device_align_step(al.di, torch.as_tensor(batch.codes),
+                         torch.as_tensor(batch.lens), al.mat)
+assert (step[4] > 0).sum() >= 10, step[4]
 print("JAX_LOADED", "jax" in sys.modules, file=sys.stderr)
 print("TPUBWA_LOADED", sorted(m for m in sys.modules if m == "tpubwa"
                               or m.startswith("tpubwa.")), file=sys.stderr)
@@ -87,6 +104,9 @@ def test_port_sources_do_not_import_tpubwa():
         files += [os.path.join(base, n) for n in names
                   if n.endswith((".py", ".cu", ".cpp", ".h"))]
     assert len(files) > 30
+    for new in ("align/chain.py", "align/region.py", "ops/extend_ref.py",
+                "ops/fm_ref.py", "native/chain.cpp"):
+        assert os.path.join(ROOT, "tpubwa_torch", new) in files, new
     bad = []
     for path in files:
         with open(path) as f:

@@ -19,8 +19,13 @@ Layout mirrors ``tpubwa``:
   tpubwa_torch.cli    — ``tpu-bwa-torch index|mem``
 
 Ported: single-end and paired-end alignment, the serving modes (wide
-index, sampled SA, ``--chunks``, ``--hosts``, ``-t N``), and the device
-mesh (reads split over N devices, the suffix array copied or sharded).
+index, sampled SA, ``--chunks``, ``--hosts``, ``-t N``), the device mesh
+(reads split over N devices, the suffix array copied or sharded), the
+big-genome build and serve (``tools.big``), the per-read chain-and-extend
+path (``Aligner.chain_batch`` + ``extend_batch_rounds``), the fused
+device step (``parallel.mesh.device_align_step``, ``sharded_align_step``)
+and the scalar oracles (``ops.extend_ref``, ``ops.fm_ref``, the NumPy
+suffix array): all of ``tpubwa`` but its TPU workarounds.
 """
 
 __version__ = "0.1.0"

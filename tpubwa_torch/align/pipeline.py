@@ -25,7 +25,9 @@ import torch
 
 import tpubwa_torch
 from tpubwa_torch.align import finalize, flatext, flatsam
+from tpubwa_torch.align.chain import chain_filter_batch_native
 from tpubwa_torch.align.cigar_batch import GABatchExecutor
+from tpubwa_torch.align.region import extend_read, run_extension_rounds
 from tpubwa_torch.config import MemOptions
 from tpubwa_torch.index.fmindex import FMIndex
 from tpubwa_torch.io.fastq import stream_batches
@@ -33,6 +35,7 @@ from tpubwa_torch.io.sam import sam_header
 from tpubwa_torch.native import load_native
 from tpubwa_torch.ops import (extend_cuda, global_align_cuda, localsw_cuda,
                               sa_sampled_cuda, smem_chain_cuda)
+from tpubwa_torch.ops.extend import extend_seed_batch
 from tpubwa_torch.ops.extend_cuda import extend_core, extend_core_b
 from tpubwa_torch.ops.fm import (DeviceIndex, ShardedSA, build_sampled_sa,
                                  wide_layout)
@@ -235,6 +238,62 @@ class Aligner:
     def seed_batch(self, codes: np.ndarray, lens: np.ndarray):
         """Synchronous dispatch + finish."""
         return self.seed_batch_finish(self.seed_batch_dispatch(codes, lens))
+
+    # ------------------------------------------- per-read path ----
+    #
+    # Chains as objects, then one extension generator a read driven in
+    # rounds: the bwa-semantics reference that the flat engine below (the
+    # production route) is held to.  Never a fallback of regions_batch.
+
+    def chain_batch(self, seed_rows: np.ndarray, l_rep: np.ndarray,
+                    lens) -> list:
+        """Chain + filter a batch's seed rows (``seed_batch``'s) in the
+        native library; returns list[list[Chain]], one list a read."""
+        B = len(lens)
+        with self.timers.phase("CHAIN"):
+            # seed rows are in (read, slot) order: per-read segments
+            bounds = np.searchsorted(seed_rows[:, 0], np.arange(B + 1))
+            skip = (np.asarray(lens) < self.opt.min_seed_len
+                    ).astype(np.uint8)
+            cb = chain_filter_batch_native(
+                self.opt, self.idx.l_pac, self.contig_offsets, seed_rows,
+                bounds, skip)
+            return cb.to_lists(B, l_rep, lens)
+
+    def extend_batch_rounds(self, codes: np.ndarray, lens,
+                            chains_per_read: list) -> list:
+        """Extend each read's chains (``align.region.extend_read``) in
+        lockstep rounds on the Aligner's devices, with its layout's
+        extension kernel; returns list[list[AlnReg]].  On a mesh each
+        round's lanes are split into contiguous parts, one a device."""
+        opt = self.opt
+        kw = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+                  e_ins=opt.e_ins, zdrop=opt.zdrop, mat_max=opt.a)
+        names = ("q_l", "qlen_l", "t_l", "tlen_l", "q_r", "qlen_r", "t_r",
+                 "tlen_r")
+
+        def extend_round(lanes: dict) -> np.ndarray:
+            parts = []
+            for d, (lo, hi) in enumerate(self.mesh.split(len(lanes["h0"]))):
+                if hi > lo:
+                    dev = self.mesh[d]
+                    a = {k: self._put(v[lo:hi], dev)
+                         for k, v in lanes.items()}
+                    out = extend_seed_batch(
+                        *(a[k] for k in names), self.mat_on(dev), a["w0"],
+                        a["h0"], a["pen5"], a["pen3"], core=self.ext_core,
+                        **kw)
+                    parts.append(torch.stack(
+                        [*out.left, *out.right, out.aw0, out.aw1]
+                    ).to(self.device))
+            return torch.cat(parts, dim=1).cpu().numpy()
+
+        with self.timers.phase("BSW"):
+            gens = [extend_read(opt, self.idx.l_pac, self.idx.fetch_ref,
+                                int(lens[b]), codes[b, : lens[b]],
+                                chains_per_read[b])
+                    for b in range(len(chains_per_read))]
+            return run_extension_rounds(gens, opt, extend_round)
 
     # ------------------------------------------ flat extension path ----
 

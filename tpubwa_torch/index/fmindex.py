@@ -73,14 +73,19 @@ class FMIndex:
 
     @classmethod
     def build(cls, contigs: list[Contig], codes: np.ndarray,
-              holes: np.ndarray | None = None) -> "FMIndex":
+              holes: np.ndarray | None = None,
+              use_native: bool | None = None) -> "FMIndex":
+        """The index of `codes`; ``use_native`` picks the suffix-array
+        construction (``index.sais.suffix_array``: None or True, SA-IS in
+        the native library, raising when it cannot be built; False, NumPy
+        prefix doubling)."""
         l_pac = int(codes.size)
         if 2 * l_pac >= 1 << 40:
             raise ValueError("reference exceeds the 5-byte SA layout (2^40)")
         rc = (3 - codes[::-1]).astype(np.uint8)
         seq = np.concatenate([codes, rc])
         n = seq.size
-        sa = suffix_array(seq)
+        sa = suffix_array(seq, use_native=use_native)
         bwt, primary = bwt_and_primary(seq, sa)
 
         counts = np.bincount(seq, minlength=4).astype(np.int64)
@@ -104,9 +109,10 @@ class FMIndex:
         )
 
     @classmethod
-    def from_fasta(cls, path: str) -> "FMIndex":
+    def from_fasta(cls, path: str,
+                   use_native: bool | None = None) -> "FMIndex":
         contigs, codes, holes = read_fasta(path)
-        return cls.build(contigs, codes, holes)
+        return cls.build(contigs, codes, holes, use_native=use_native)
 
     @staticmethod
     def _build_checkpoints(bwt: np.ndarray, n: int

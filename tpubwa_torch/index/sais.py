@@ -1,9 +1,12 @@
 """Suffix array construction.
 
 The C++ SA-IS library (native/sais.cpp), compiled at first use with g++ and
-loaded via ctypes; a failed build raises.
+loaded via ctypes; a failed build raises.  ``use_native=False`` builds
+with NumPy prefix doubling instead (O(n log^2 n)), a second construction
+written apart from SA-IS that the tests hold it to; it is never taken
+in SA-IS's place when the build fails.
 
-It builds the suffix array of ``codes + sentinel`` where the sentinel is
+Both build the suffix array of ``codes + sentinel`` where the sentinel is
 strictly smaller than every code — i.e. the returned SA has length n+1 and
 SA[0] == n.
 """
@@ -16,12 +19,17 @@ import numpy as np
 from tpubwa_torch.native.build import load_native as _load_native
 
 
-def suffix_array(codes: np.ndarray) -> np.ndarray:
+def suffix_array(codes: np.ndarray,
+                 use_native: bool | None = None) -> np.ndarray:
     """Suffix array of codes (values 0..3) + virtual sentinel.
 
+    ``use_native`` None or True: SA-IS in the native library (raises when
+    it cannot be built); False: NumPy prefix doubling.
     Returns int64 array of length n+1 with sa[0] == n.
     """
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    if use_native is False:
+        return _suffix_array_doubling(codes)
     n = codes.size
     lib = _load_native()
     s = np.empty(n + 1, dtype=np.uint8)
@@ -35,6 +43,34 @@ def suffix_array(codes: np.ndarray) -> np.ndarray:
     if rc != 0:
         raise RuntimeError(f"sais_u8 failed: {rc}")
     return sa
+
+
+def _suffix_array_doubling(codes: np.ndarray) -> np.ndarray:
+    """NumPy prefix-doubling suffix array (with sentinel), O(n log² n)."""
+    n = codes.size + 1
+    rank = np.zeros(n, dtype=np.int64)
+    rank[: n - 1] = codes.astype(np.int64) + 1  # sentinel gets rank 0
+    k = 1
+    sa = np.argsort(rank, kind="stable")
+    while True:
+        key2 = np.full(n, -1, dtype=np.int64)
+        key2[: n - k] = rank[k:]
+        order = np.lexsort((key2, rank))
+        new_rank = np.zeros(n, dtype=np.int64)
+        r1 = rank[order]
+        r2 = key2[order]
+        changed = np.ones(n, dtype=np.int64)
+        changed[1:] = (r1[1:] != r1[:-1]) | (r2[1:] != r2[:-1])
+        ranks_sorted = np.cumsum(changed) - 1
+        new_rank[order] = ranks_sorted
+        rank = new_rank
+        sa = order
+        if ranks_sorted[-1] == n - 1:
+            break
+        k *= 2
+        if k >= n:
+            break
+    return sa.astype(np.int64)
 
 
 def bwt_and_primary(codes: np.ndarray, sa: np.ndarray) -> tuple[np.ndarray, int]:

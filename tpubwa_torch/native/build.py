@@ -1,12 +1,13 @@
 """Build and load the port's native host library.
 
 The C++ sources in this directory (SA-IS index construction, seed
-chaining, the extension replay, SAM assembly) compile into one shared
+chaining (``chain.cpp``), the extension replay, SAM assembly; ``core.h``
+holds what chaining and the replay share) compile into one shared
 library with a plain C interface, loaded via ctypes.  ``load_native``
-compiles them with g++ at first use into ``build/tpubwa_torch/``, keyed by
-a hash of the sources, as ``ops.cuda_build`` does for the CUDA kernels.
-There is no fallback: a missing g++ or a failed build raises with the
-compiler's message.
+compiles them with g++ (``GXX``) at first use into ``build/tpubwa_torch/``,
+keyed by a hash of the sources, as ``ops.cuda_build`` does for the CUDA
+kernels.  There is no fallback: a missing g++ or a failed build raises
+with the compiler's message.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from pathlib import Path
 from tpubwa_torch.ops.cuda_build import BUILD_DIR, lock
 
 _DIR = Path(__file__).resolve().parent
+GXX = "g++"
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 _lib = None
 
@@ -47,17 +49,17 @@ def load_native() -> ctypes.CDLL:
             # same sources into the same directory at the same time
             tmp = so.with_name(
                 f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-            cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), *map(str, srcs)]
+            cmd = [GXX, *GXX_FLAGS, "-o", str(tmp), *map(str, srcs)]
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True)
             except FileNotFoundError as e:
                 raise RuntimeError(
-                    "g++ not found; the native host library must be built "
-                    f"from {_DIR}") from e
+                    f"{GXX} not found; the native host library must be "
+                    f"built from {_DIR}") from e
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(
-                    f"g++ failed on {_DIR}/*.cpp:\n{proc.stderr}")
+                    f"{GXX} failed on {_DIR}/*.cpp:\n{proc.stderr}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         _declare(lib)
@@ -76,6 +78,18 @@ def _declare(lib) -> None:
 
     lib.bwt_from_sa.restype = c.c_int
     lib.bwt_from_sa.argtypes = [u8p, i64p, c.c_int64, u8p, i64p]
+
+    lib.chain_filter_batch.restype = c.c_int
+    lib.chain_filter_batch.argtypes = [
+        i64p, c.c_int64,          # seed_rows, n_seeds
+        i64p, c.c_int64,          # read_bounds, n_reads
+        u8p,                      # skip_read
+        i64p, c.c_int64, c.c_int64,   # contig_offsets, n_contigs, l_pac
+        c.c_int32, c.c_int32, c.c_int32, c.c_int64,  # w, gap, minw, maxext
+        c.c_double, c.c_double, c.c_int32,  # mask_level, drop_ratio, minseed
+        i32p, i32p, i32p, i64p, i64p, c.c_int64,  # outputs + cap
+        i64p,                     # out_counts
+    ]
 
     f64p = c.POINTER(c.c_double)
     lib.ext_prepare.restype = c.c_void_p

@@ -1,5 +1,6 @@
 // Host-engine internals: seed chaining + chain filtering structures used
-// by the extension orchestrator (extension.cpp).
+// by the chaining entry point (chain.cpp) and the extension orchestrator
+// (extension.cpp).
 //
 // Semantics of bwa-mem's mem_chain / mem_chain_flt (reference call stack
 // SURVEY.md §3.1 worker_aln -> mem_chain_seeds, [src] bwamem.cpp:808),

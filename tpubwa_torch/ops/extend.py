@@ -5,6 +5,12 @@ batch lane per extension job, each DP row a vectorised [B, Q] update with
 F taken as an exclusive running max of (max(M - oe_ins, 0) + j*e_ins).
 This is the reference the CUDA kernel (``ops.extend_cuda``) is held to,
 and what the wrapper runs for tensors on the CPU.
+
+``extend_batch`` is the single-extension entry (K1's wrapper:
+``ops.extend_cuda.extend_core``); ``extend_seed_batch`` is a whole seed
+in one call, left then right with bwa's band-doubling retry
+(``_with_retry``, which the flat job programs of ``ops.extend_flat`` use
+too).
 """
 from __future__ import annotations
 
@@ -175,3 +181,65 @@ def _extend_core(query: torch.Tensor, qlen: torch.Tensor,
         stats["cells_per_job"] = cells
     return ExtendBatchResult(score=best, qle=best_j + 1, tle=best_i + 1,
                              gtle=max_ie + 1, gscore=gscore, max_off=max_off)
+
+
+def extend_batch(query, qlen, target, tlen, mat, w, h0, end_bonus, *,
+                 o_del: int, e_del: int, o_ins: int, e_ins: int, zdrop: int,
+                 mat_max: int) -> ExtendBatchResult:
+    """Batched ksw_extend2 (``_extend_core``'s contract): the plain version
+    for CPU tensors, K1 (``ops.extend_cuda.extend_core``) for CUDA
+    tensors."""
+    from tpubwa_torch.ops.extend_cuda import extend_core  # imports us
+
+    return extend_core(query, qlen, target, tlen, mat, w, h0, end_bonus,
+                       o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+                       zdrop=zdrop, mat_max=mat_max)
+
+
+def _with_retry(core, q, ql, t, tl, mat, w0v, h, bonus, prev_score, kw):
+    """One extension side plus bwa's retry at double band for lanes whose
+    max_off crossed 3/4 of the band; returns (result, band used).  The
+    retry is one more launch over every lane, with qlen 0 (nothing to do)
+    where a lane does not retry."""
+    res0 = core(q, ql, t, tl, mat, w0v, h, bonus, **kw)
+    thresh0 = (w0v >> 1) + (w0v >> 2)
+    retry = (ql > 0) & (res0.score != prev_score) & (res0.max_off >= thresh0)
+    res1 = core(q, torch.where(retry, ql, 0), t, tl, mat, 2 * w0v, h, bonus,
+                **kw)
+    res = ExtendBatchResult(*(torch.where(retry, b, a)
+                              for a, b in zip(res0, res1)))
+    return res, torch.where(retry, 2 * w0v, w0v)
+
+
+class SeedExtResult(NamedTuple):
+    left: ExtendBatchResult    # fields are garbage where qlen_l == 0
+    right: ExtendBatchResult   # fields are garbage where qlen_r == 0
+    score0: torch.Tensor       # [B] score after the left half (= h0 input
+    #                            of the right half)
+    aw0: torch.Tensor          # [B] band actually used on the left
+    aw1: torch.Tensor          # [B] band actually used on the right
+
+
+def extend_seed_batch(q_l, qlen_l, t_l, tlen_l, q_r, qlen_r, t_r, tlen_r,
+                      mat, w0, h0, pen5, pen3, *, o_del: int, e_del: int,
+                      o_ins: int, e_ins: int, zdrop: int, mat_max: int,
+                      core=None) -> SeedExtResult:
+    """Whole-seed extension: left extension (reversed sequences) with its
+    retry, then the right extension seeded with the left score, with its
+    own retry — bwa's per-seed loop in mem_chain2aln ([src] bwamem.cpp;
+    SURVEY.md §3.1 worker_aln).
+
+    h0: [B] initial score (seed_len * a).  ``core`` is the single-
+    extension function; the default is K1's wrapper (``extend_batch``:
+    the plain version for CPU tensors, K1 for CUDA tensors), the Aligner
+    passes its layout's (``align.pipeline.EXT_CORES``)."""
+    core = core or extend_batch
+    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+              zdrop=zdrop, mat_max=mat_max)
+    left, aw0 = _with_retry(core, q_l, qlen_l, t_l, tlen_l, mat, w0, h0,
+                            pen5, -1, kw)
+    score0 = torch.where(qlen_l > 0, left.score, h0)
+    right, aw1 = _with_retry(core, q_r, qlen_r, t_r, tlen_r, mat, w0, score0,
+                             pen3, score0, kw)
+    return SeedExtResult(left=left, right=right, score0=score0, aw0=aw0,
+                         aw1=aw1)

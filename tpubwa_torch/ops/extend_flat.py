@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from tpubwa_torch.ops.extend import ExtendBatchResult, _extend_core
+from tpubwa_torch.ops.extend import _extend_core, _with_retry
 from tpubwa_torch.ops.fm import (DeviceIndex, ref_window_left,
                                  ref_window_right)
 
@@ -22,19 +22,6 @@ I32 = torch.int32
 # impose is part of the output (the JAX package's round driver uses them)
 Q_PAD = 192
 T_PAD = 768
-
-
-def _with_retry(core, q, ql, t, tl, mat, w0v, h, bonus, prev_score, kw):
-    """One extension side plus bwa's retry at double band for lanes whose
-    max_off crossed 3/4 of the band; returns (result, band used)."""
-    res0 = core(q, ql, t, tl, mat, w0v, h, bonus, **kw)
-    thresh0 = (w0v >> 1) + (w0v >> 2)
-    retry = (ql > 0) & (res0.score != prev_score) & (res0.max_off >= thresh0)
-    res1 = core(q, torch.where(retry, ql, 0), t, tl, mat, 2 * w0v, h, bonus,
-                **kw)
-    res = ExtendBatchResult(*(torch.where(retry, b, a)
-                              for a, b in zip(res0, res1)))
-    return res, torch.where(retry, 2 * w0v, w0v)
 
 
 def extend_jobs_left(di: DeviceIndex, codes: torch.Tensor,

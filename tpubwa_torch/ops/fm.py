@@ -182,6 +182,19 @@ def ext_core(di: DeviceIndex, kk: torch.Tensor, ll: torch.Tensor,
     return k_b, torch.stack([l0, l1, l2, l3], dim=-1), s_b
 
 
+def backward_ext_all(di: DeviceIndex, ik: BiInterval,
+                     is_back: bool) -> BiInterval:
+    """Extend the bi-interval by every base at once (bwa's bwt_extend).
+
+    is_back=True: prepend base b to the pattern (backward search step).
+    is_back=False: append base b (forward step, via the revcomp interval).
+    Returns a BiInterval with a trailing axis of 4, one per base b."""
+    if is_back:
+        return BiInterval(*ext_core(di, ik.k, ik.l, ik.s))
+    k_b, l_b, s_b = ext_core(di, ik.l, ik.k, ik.s)
+    return BiInterval(k=l_b, l=k_b, s=s_b)
+
+
 def set_intv(di: DeviceIndex, c: torch.Tensor) -> BiInterval:
     """Initial bi-interval for a single base c (clipped to 0..3; callers
     mask ambiguous bases themselves)."""
@@ -422,6 +435,19 @@ def sa_lookup_sampled(di: DeviceIndex, ss: SampledSA, rows: torch.Tensor,
 
 # ------------------------------------------- contiguous window fetch ----
 #
+def fetch_ref_batch(di: DeviceIndex, pos: torch.Tensor) -> torch.Tensor:
+    """int32 reference codes at positions `pos` in 2*l_pac space (any
+    shape; a gather from the 2-bit packed forward reference).  Positions
+    out of range give 4."""
+    in_range = (pos >= 0) & (pos < 2 * di.l_pac)
+    fwd = pos < di.l_pac
+    p = torch.where(fwd, pos, 2 * di.l_pac - 1 - pos).clamp(0, di.l_pac - 1)
+    w = di.pac_words[(p >> 4).to(torch.int64)]
+    code = ((w >> ((p & 15) * 2)) & 3).to(torch.int32)
+    code = torch.where(fwd, code, 3 - code)
+    return torch.where(in_range, code, 4)
+
+
 # Extension and SAM windows are consecutive reference spans that never
 # cross the l_pac strand boundary: gather the 2-bit packed WORDS (1/16th
 # the gathered elements of a per-base gather), unpack, then shift each row

@@ -14,6 +14,10 @@ CUDA device); the device index then holds only ``sa[:1]``.
 On a device mesh (``seed_rows_mesh``) each shard expands the SMEMs of its
 slice of the batch on its own device; under ``shard_sa`` the positions
 come from the SA split over the mesh (``ops.fm.sa_lookup_sharded``).
+
+``smems_to_seeds`` is the padded [B, S] expansion (S slots a read, from
+the full SA) and ``compact_seeds`` its compaction into ``seed_rows``'s
+row layout; ``parallel.mesh.device_align_step`` runs them.
 """
 from __future__ import annotations
 
@@ -27,6 +31,18 @@ from tpubwa_torch.ops.sa_sampled_cuda import sa_lookup_sampled_core
 from tpubwa_torch.ops.smem import Smems
 
 I32 = torch.int32
+
+
+class SeedBatch(NamedTuple):
+    """Seed hits padded to S slots a read (``smems_to_seeds``)."""
+
+    rbeg: torch.Tensor      # [B, S] position in 2*l_pac space (SA dtype)
+    qbeg: torch.Tensor      # [B, S] int32
+    len: torch.Tensor       # [B, S] int32
+    valid: torch.Tensor     # [B, S] bool
+    n: torch.Tensor         # [B] int32
+    overflow: torch.Tensor  # [B] bool (seed cap hit)
+    l_rep: torch.Tensor     # [B] int32 repetitive-coverage length
 
 
 class CompactSeeds(NamedTuple):
@@ -183,17 +199,83 @@ def _compact(di: DeviceIndex, sm: Smems, c: dict, lay: dict,
     packed = torch.zeros((R + 1, 4), dtype=idt, device=dev).index_put(
         (out_dst,), rows)[:R]
 
-    # l_rep: union length of query intervals of repetitive SMEMs (SMEMs
-    # are sorted by start within each read)
-    rep = c["in_use"] & (sm.s > max_occ)
-    end_m = torch.where(rep, sm.end, 0)
-    prev = torch.cat([torch.zeros((B, 1), dtype=end_m.dtype, device=dev),
-                      torch.cummax(end_m, dim=1).values[:, :-1]], dim=1)
-    contrib = torch.where(
-        rep, torch.clamp(sm.end - torch.maximum(sm.start, prev), min=0), 0)
-    l_rep = contrib.sum(dim=1).to(I32)
-
+    l_rep = _l_rep(sm, c["in_use"], max_occ)
     ovf = c["read_ovf"] | (lay["base"] + lay["lb"] + c["read_tot"]
                            > lay["CAP"])
     return CompactSeeds(packed=packed, n=k32.sum(), l_rep=l_rep,
                         overflow=ovf)
+
+
+def _l_rep(sm: Smems, in_use: torch.Tensor, max_occ: int) -> torch.Tensor:
+    """int32 [B]: the union length of the query intervals of the SMEMs
+    with more than max_occ hits (the SMEMs of a read are sorted by start,
+    so each adds what lies past the ends before it)."""
+    B = sm.k.shape[0]
+    rep = in_use & (sm.s > max_occ)
+    end_m = torch.where(rep, sm.end, 0)
+    prev = torch.cat([torch.zeros((B, 1), dtype=end_m.dtype,
+                                  device=end_m.device),
+                      torch.cummax(end_m, dim=1).values[:, :-1]], dim=1)
+    contrib = torch.where(
+        rep, torch.clamp(sm.end - torch.maximum(sm.start, prev), min=0), 0)
+    return contrib.sum(dim=1).to(I32)
+
+
+def smems_to_seeds(di: DeviceIndex, sm: Smems, *, max_occ: int = 500,
+                   out_seeds: int = 128) -> SeedBatch:
+    """SMEMs -> seed hits in S = out_seeds slots a read, SMEM order (bwa's
+    occ/max_occ stride sampling; the slots past S are dropped and flagged
+    in ``overflow``), positions from the full SA; seeds that bridge the
+    strand boundary are cleared from ``valid``."""
+    B, M = sm.k.shape
+    S = out_seeds
+    dev = sm.k.device
+    in_use = torch.arange(M, device=dev)[None, :] < sm.n[:, None]
+    occ = torch.where(in_use, sm.s, 0)
+    step = torch.where(occ > max_occ, occ // max_occ, 1)
+    cnt = torch.clamp(occ, max=max_occ)
+
+    # prefix layout: slot t belongs to SMEM m with off[m] <= t < off[m+1]
+    off_end = torch.cumsum(cnt, dim=1, dtype=cnt.dtype)      # inclusive
+    off_beg = off_end - cnt
+    total = torch.clamp(off_end[:, -1], max=S)
+    t = torch.arange(S, device=dev)[None, :]                  # [1, S]
+    m_idx = (off_end[:, :, None] <= t[:, None, :]).sum(dim=1).clamp(0, M - 1)
+    valid = t < total[:, None]
+
+    j = t - off_beg.gather(1, m_idx)
+    sa_row = sm.k.gather(1, m_idx) + j * step.gather(1, m_idx)
+    rbeg = di.sa[sa_row.clamp(0, di.sa.shape[0] - 1)]
+    qbeg = sm.start.gather(1, m_idx)
+    slen = sm.end.gather(1, m_idx) - qbeg
+
+    # drop seeds that bridge the forward/reverse boundary (contig
+    # boundaries are the host's: the contig offsets live there)
+    bridge = (rbeg < di.l_pac) & (rbeg + slen > di.l_pac)
+    valid = valid & ~bridge
+    return SeedBatch(rbeg=torch.where(valid, rbeg, 0),
+                     qbeg=torch.where(valid, qbeg, 0).to(I32),
+                     len=torch.where(valid, slen, 0).to(I32), valid=valid,
+                     n=valid.sum(dim=1, dtype=I32),
+                     overflow=off_end[:, -1] > S,
+                     l_rep=_l_rep(sm, in_use, max_occ))
+
+
+def compact_seeds(sb: SeedBatch) -> CompactSeeds:
+    """The valid slots of a padded seed batch as dense [B*S, 4] rows
+    (read_id, rbeg, qbeg, len) in (read, slot) order, ``seed_rows``'s
+    layout; rows >= n are zero."""
+    B, S = sb.rbeg.shape
+    dev = sb.rbeg.device
+    idt = sb.rbeg.dtype
+    valid = sb.valid.reshape(-1)
+    pos = torch.cumsum(valid.to(I32), dim=0, dtype=I32) - 1
+    dst = torch.where(valid, pos, B * S).to(torch.int64)   # B*S: dropped
+    read_id = torch.arange(B, device=dev).repeat_interleave(S)
+    rows = torch.stack([read_id.to(idt), sb.rbeg.reshape(-1),
+                        sb.qbeg.reshape(-1).to(idt),
+                        sb.len.reshape(-1).to(idt)], dim=1)
+    packed = torch.zeros((B * S + 1, 4), dtype=idt, device=dev).index_put(
+        (dst,), rows)[:B * S]
+    return CompactSeeds(packed=packed, n=pos[-1] + 1, l_rep=sb.l_rep,
+                        overflow=sb.overflow)

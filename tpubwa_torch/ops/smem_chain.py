@@ -491,6 +491,16 @@ def collect_smems_chain(di: DeviceIndex, q: torch.Tensor, lens: torch.Tensor,
         r2_lanes=r2_lanes, r2_cap=r2_cap)[0]
 
 
+def collect_smems_chain_fused(di: DeviceIndex, q: torch.Tensor,
+                              lens: torch.Tensor, **kw) -> Smems:
+    """``collect_smems_chain`` under the name of the JAX package's one-
+    program variant, which ``parallel.mesh.device_align_step`` calls.
+    JAX split the collection into staged programs only for the TPU
+    compiler's sake and kept this fused one for the small demo step; on
+    a torch device both are the same calls, bit for bit."""
+    return collect_smems_chain(di, q, lens, **kw)
+
+
 def collect_smems_mesh(dis: list, qs: list, lenss: list, *,
                        min_seed_len: int = 19, split_len: int = 28,
                        split_width: int = 10, max_mem_intv: int = 20,

@@ -150,6 +150,20 @@ Phases (any failure exits non-zero):
    against fm_ref.collect_smems on 64 reads of SE batch 1.  (d) An index
    built by NumPy prefix doubling equals the native SA-IS build (200 kb,
    host only).
+13. The port's measurement programs on the card.  (a) tools.bench (the
+   port of bench.py) at bench.py's four configurations, 3 passes each:
+   SE on the 4.6 Mb random genome (phase 4's files: its body hash equals
+   phase 4's body), SE and PE (10,000 pairs) on a 46 Mb chr21-style
+   genome (bench.py's 46 Mb fixture, built here once: its index build
+   timed; the body hashes equal the JAX package's, pinned below), and
+   --kernel under layouts t (K1) and b (K1b): the last call's scores
+   equal the plain version's, the launch counter grew by the calls made,
+   visited Gcells/s and its share of the card's bound.  One record a
+   line.  (b) tools.profile_se (scripts/profile_r4.py) on the 4.6 Mb
+   random and the 46 Mb chr21-style SE fixtures, (c) tools.profile_pe
+   (scripts/profile_pe_r5.py) on the 46 Mb PE fixture: stage times, the
+   cProfile table, one record each; each tool checks that its replayed
+   text equals the production path's.  Every record names the card.
 
 Before the last line: one JSON line of the seven kernels (launches on the
 path that runs them, agreement, kernel / plain / bound times), then the
@@ -157,7 +171,8 @@ card line again.  The last line is {"ok": true, "device": {...}}.
 
 A kernel's bound is the larger of (bytes it must move) / HBM_BPS and
 (integer operations on this run's data) / INT32_OPS; the operation counts
-per unit of work are the OPS_* constants below: what the function needs
+per unit of work are the OPS_* constants of tpubwa_torch.utils.roofline
+(which tools.bench --kernel uses too): what the function needs
 for one band cell, traceback step, extension step or LF step, not what a
 kernel happens to execute.  The units are counted on this run's data: band
 cells visited, traceback steps taken, extension steps of every chain.
@@ -175,6 +190,11 @@ import sys
 import time
 
 import numpy as np
+
+from tpubwa_torch.utils.roofline import (HBM_BPS, INT32_OPS, OPS_CHAIN_STEP,
+                                         OPS_EXT_CELL, OPS_GA_CELL,
+                                         OPS_GA_STEP, OPS_LF_STEP,
+                                         OPS_SW_CELL)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -201,34 +221,10 @@ KERNELS = {
 # kernel -> what its __global__ function's name contains
 KERNEL_FUNCS = {"extend": "extend_kernel", "extend_b": "extend_b_kernel",
                 "localsw": "localsw_kernel"}
-# The card's peaks for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s
-# of HBM; 67 TFLOP/s of float32 outside the tensor cores is 128 lanes per
-# SM at 2 FLOPs per fused multiply-add, and int32 has 64 lanes per SM at
-# one operation each, so 67e12 / 2 / 2 integer operations a second.
-HBM_BPS = 3.35e12
-INT32_OPS = 67e12 / 2 / 2
-# integer operations per unit of work, counted from the kernels' sources
-OPS_EXT_CELL = 15      # K1 / K1b: one band cell of ksw_extend2
-OPS_SW_CELL = 12       # K4: one cell of the local SW
-OPS_GA_CELL = 25       # K3: one band cell of the global fill (+ direction)
-OPS_GA_STEP = 12       # K3: one traceback step with its RLE
-# K2: one extension step, by the least arithmetic that computes it (not the
-# kernel's own, which counts each base separately).  occ of the four bases
-# at one position, 75: the sentinel shift 2, block and offset 2, the row's
-# address 1; per packed word 13 (the two bit planes 3, the position mask 4,
-# the masked planes 2, their and 1, three popcounts: both planes and the
-# and); the three sums over the four words 9; the four bases' counts from
-# the sums and the offset 5 (the fourth base follows from the other
-# three); adding the checkpoint counts 4: 5 + 4 * 13 + 9 + 5 + 4.  The
-# update, 30: four interval sizes 4, the sentinel test 4, the chain of
-# co-interval starts 4, the L2 add 1, three selects by base 9, the swaps
-# of a forward step 4, the take rule 3, the advance 1.
-OPS_OCC4 = 5 + 4 * 13 + 9 + 5 + 4
-OPS_CHAIN_STEP = 2 * OPS_OCC4 + 30
-OPS_LF_STEP = 60       # K5: one probe + one LF step (one base's occ)
 J_RAND, Q_RAND, T_RAND = 8192, 192, 768
 J_SW, Q_SW = 4096, 192
-REF_LEN, N_READS, BATCH = 4_600_000, 20_000, 8192
+REF_MB, N_READS, BATCH = 4.6, 20_000, 8192
+REF_LEN = int(REF_MB * 1e6)
 N_PAIRS = 10_000
 # SHA-256 of the SAM body (every line not starting with "@") that the JAX
 # package writes for phase 5's fixture: tpubwa.align.pipeline.align_fastq,
@@ -1131,18 +1127,6 @@ def phase_golden(device: str = "cuda") -> None:
 
 # ---------------------------------------------------------------- 4 ----
 
-def write_fasta(path: str, codes: np.ndarray) -> None:
-    from tpubwa_torch.index.fmindex import FMIndex
-    from tpubwa_torch.utils.dna import decode
-
-    with open(path, "w") as f:
-        f.write(">benchref\n")
-        seq = decode(codes)
-        for i in range(0, len(seq), 80):
-            f.write(seq[i:i + 80] + "\n")
-    FMIndex.from_fasta(path).save(path)
-
-
 def capture_first(module, attr: str, captured: list, limit: int = 1):
     """Context manager: module.attr runs as it is, and the arguments of
     its first `limit` calls are kept (tensors cloned) in `captured`, each
@@ -1221,20 +1205,12 @@ def profiled_pass(tag: str, run, history: str = "", top: int = 6) -> None:
 
 
 def se_fixture() -> tuple[str, str]:
-    """bench.py's _ensure_fixture recipe (random genome, seed 42; reads
-    seed 7), built in the checkout's build directory."""
-    from tpubwa_torch.io.fasta import read_fasta
-    from tpubwa_torch.utils import sim
+    """bench.py's SE fixture (tools.bench.ensure_fixture: random genome,
+    seed 42; reads seed 7), built in the checkout's build directory."""
+    from tpubwa_torch.tools.bench import ensure_fixture
 
-    os.makedirs(WORK, exist_ok=True)
-    fa = os.path.join(WORK, f"ref_{REF_LEN}.fa")
-    fq = os.path.join(WORK, f"reads_{REF_LEN}_{N_READS}_se.fq")
     t = time.monotonic()
-    write_fasta(fa, np.random.default_rng(42).integers(0, 4, REF_LEN)
-                .astype(np.uint8))
-    contigs, codes, _ = read_fasta(fa)
-    sim.write_fastq(fq, sim.simulate_reads(codes, contigs, N_READS,
-                                           length=150, err=0.01, seed=7))
+    fa, fq, _ = ensure_fixture(REF_MB, N_READS, False, "random", WORK)
     print(f"[se] fixture: {REF_LEN} bp genome + index + {N_READS} reads "
           f"in {time.monotonic() - t:.1f} s")
     return fa, fq
@@ -1330,23 +1306,13 @@ def phase_se(fa: str, fq: str, device: str = "cuda") -> dict:
 # ---------------------------------------------------------------- 5 ----
 
 def pe_fixture() -> tuple[str, str, str]:
-    """bench.py's PE chr21-style recipe (TPUBWA_BENCH_PE=1
+    """bench.py's PE chr21-style fixture (tools.bench.ensure_fixture with
+    pe and style chr21: bench.py's TPUBWA_BENCH_PE=1
     TPUBWA_BENCH_STYLE=chr21), built in the checkout's build directory."""
-    from tpubwa_torch.io.fasta import read_fasta
-    from tpubwa_torch.utils import sim
-    from tpubwa_torch.utils.simgenome import repeat_genome
+    from tpubwa_torch.tools.bench import ensure_fixture
 
-    os.makedirs(WORK, exist_ok=True)
-    fa = os.path.join(WORK, f"ref_{REF_LEN}_chr21.fa")
-    fq1 = os.path.join(WORK, f"pairs_{REF_LEN}_{N_PAIRS}_1.fq")
-    fq2 = os.path.join(WORK, f"pairs_{REF_LEN}_{N_PAIRS}_2.fq")
     t = time.monotonic()
-    write_fasta(fa, repeat_genome(np.random.default_rng(42), REF_LEN))
-    contigs, codes, _ = read_fasta(fa)
-    r1, r2 = sim.simulate_pairs(codes, contigs, N_PAIRS, length=150,
-                                err=0.01, seed=7)
-    sim.write_fastq(fq1, r1)
-    sim.write_fastq(fq2, r2)
+    fa, fq1, fq2 = ensure_fixture(REF_MB, 2 * N_PAIRS, True, "chr21", WORK)
     print(f"[pe] fixture: {REF_LEN} bp chr21-style genome + index + "
           f"{N_PAIRS} pairs in {time.monotonic() - t:.1f} s")
     return fa, fq1, fq2
@@ -2729,6 +2695,81 @@ def phase_per_read_fused(fa: str, fq: str, pe_files: tuple, res: dict,
     return dict(per_read=per_read, step=step["launches"])
 
 
+# --------------------------------------------------------------- 13 ----
+
+BENCH_MB = 46           # bench.py's chr21-style configurations
+# SHA-256 of the SAM bodies the JAX package writes for bench.py's 46 Mb
+# chr21-style files (bench._ensure_fixture(46, 20000, pe, "chr21");
+# tpubwa.align.pipeline.run_se_pipeline / tpubwa.align.pair.align_pe_fastq,
+# JAX_PLATFORMS=cpu, batch_reads=8192, workers 1): the 20,000 SE reads,
+# and the 10,000 pairs
+SE46_SHA256 = ("e5aa6f9581aca71d33c6c57e6dbc5fef"
+               "37520eb0728b08db1b6238fe92dff77b")
+PE46_SHA256 = ("1328cd986f0837305d222a6babf29d52"
+               "c5b51a835c6beba2cd36e4c5c82ec0a3")
+
+
+def phase_bench(se_body: str, card: str, device: str = "cuda") -> None:
+    """13(a): tools.bench at bench.py's four configurations."""
+    from tpubwa_torch.ops.extend_cuda import extend_core, extend_core_b
+    from tpubwa_torch.tools import bench
+
+    t0 = time.monotonic()
+    base = ["--device", device, "--work", WORK, "--reads", str(N_READS),
+            "--batch", str(BATCH), "--passes", "3"]
+    chr21 = ["--ref-mb", str(BENCH_MB), "--style", "chr21"]
+    runs = ((f"SE {REF_MB} Mb random", ["--ref-mb", str(REF_MB)],
+             hashlib.sha256(se_body.encode()).hexdigest(), "phase 4's body"),
+            (f"SE {BENCH_MB} Mb chr21-style", chr21, SE46_SHA256,
+             "the JAX package's"),
+            (f"PE {BENCH_MB} Mb chr21-style", chr21 + ["--pe"], PE46_SHA256,
+             "the JAX package's"))
+    t = time.monotonic()
+    bench.ensure_fixture(BENCH_MB, N_READS, False, "chr21", WORK)
+    print(f"[13a] bench.py's {BENCH_MB} Mb chr21-style genome, its index "
+          f"and {N_READS} SE reads built in {time.monotonic() - t:.1f} s")
+    for tag, extra, want, whose in runs:
+        t = time.monotonic()
+        rec = bench.run(base + extra)
+        print(f"[13a] {tag} ({time.monotonic() - t:.1f} s with the "
+              f"fixture and warm-up): {json.dumps(rec)}")
+        check(rec["card"] == card, f"13a: {tag} record names the card")
+        check(rec["sam_body_sha256"] == want,
+              f"13a: {tag} SAM body equals {whose} (sha256 {want})")
+    for layout, counter in (("t", extend_core), ("b", extend_core_b)):
+        n0 = counter.launches
+        rec = bench.run(["--kernel", "--device", device, "--ext-layout",
+                         layout])
+        print(f"[13a] --kernel layout {layout}: {json.dumps(rec)}")
+        check(rec["card"] == card, f"13a: --kernel {layout} names the card")
+        check(rec["max_abs_err"] == 0, f"13a: --kernel {layout}: the last "
+              "call's results == the plain version's")
+        calls = 4 * bench.REP if device == "cuda" else 0   # warm + 3 runs
+        check(counter.launches - n0 == rec["launches"] == calls,
+              f"13a: --kernel {layout}: {counter.__name__}.launches grew "
+              "by the calls made")
+    print(f"[13a] bench.py's configurations in "
+          f"{time.monotonic() - t0:.1f} s")
+
+
+def phase_profilers(card: str, device: str = "cuda") -> None:
+    """13(b), (c): tools.profile_se and tools.profile_pe (each raises when
+    its replayed text differs from the production path's)."""
+    from tpubwa_torch.tools import profile_pe, profile_se
+
+    t0 = time.monotonic()
+    for mb, style in ((REF_MB, "random"), (BENCH_MB, "chr21")):
+        rec, _ = profile_se.profile(mb, style, device, WORK)
+        print(f"[13b] profile_se {mb} Mb {style}: replay == "
+              f"align_se_text; {json.dumps(rec)}")
+        check(rec["card"] == card, "13b: profile_se record names the card")
+    rec, _ = profile_pe.profile(BENCH_MB, device, 35, WORK)
+    print(f"[13c] profile_pe {BENCH_MB} Mb chr21: profiled batch == the "
+          f"driver's call; {json.dumps(rec)}")
+    check(rec["card"] == card, "13c: profile_pe record names the card")
+    print(f"[13] profilers in {time.monotonic() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2792,6 +2833,8 @@ def main() -> int:
     phase_mesh(se, pe_files)
     phase_chr21(res)
     new_paths = phase_per_read_fused(fa, fq, pe_files, res, card)
+    phase_bench(se["body"], card)
+    phase_profilers(card)
 
     check("jax" not in sys.modules, "the port ran without importing jax")
     check(not [m for m in sys.modules

@@ -1,0 +1,9 @@
+"""Host seconds of the program's ``SAL`` phase (its ``PhaseTimers`` span) in
+the window, in ms per 1,000 reads; none where the phase never ran."""
+
+
+def read(rec):
+    s = rec["phase_s"].get("SAL")
+    if s is None or rec["reads"] <= 0:
+        return None
+    return 1e6 * s / rec["reads"]

@@ -21,6 +21,7 @@ from tpubwa_torch.native import load_native
 from tpubwa_torch.ops.extend_flat import (Q_PAD, T_PAD, extend_jobs,
                                           extend_jobs_left,
                                           extend_jobs_right)
+from tpubwa_torch.utils.timers import count
 
 # job lists up to 2 * MIN_WAVE run the whole-seed program in one wave;
 # longer lists run separate left and right streams in waves of at most
@@ -266,7 +267,9 @@ def run_phased(aligner, codes_dev, lens_dev, handle, jobs: dict,
     with the results so far and returns exactly the jobs a further round
     must run; ext_finalize's sequential replay never reads a slot that was
     not run.  Output is identical to running every job.  ``codes_on`` is
-    ``run_waves``'s, made once here when absent."""
+    ``run_waves``'s, made once here when absent.  Counts the call
+    (``bsw.calls``) and its rounds (``bsw.rounds``) in the Aligner's
+    timers."""
     lib = load_native()
     if codes_on is None:
         codes_on = aligner.batch_on(codes_dev, lens_dev)
@@ -276,7 +279,9 @@ def run_phased(aligner, codes_dev, lens_dev, handle, jobs: dict,
     ids = np.empty(max(n_jobs, 1), np.int64)
     n1 = lib.ext_phase1(handle, ids.ctypes.data_as(_I64P))
     run = ids[:n1].copy()
+    count(aligner.timers, "bsw.calls")
     while run.size:
+        count(aligner.timers, "bsw.rounds")
         sub = {k: np.ascontiguousarray(v[:n_jobs][run])
                for k, v in jobs.items()}
         results[run] = run_waves(aligner, codes_dev, lens_dev, sub, run.size,

@@ -38,6 +38,7 @@ from tpubwa_torch.ops.fm import DeviceIndex, ref_window_right
 from tpubwa_torch.ops.global_align import (cigar_nm_md,
                                            global_align_cigar_batch)
 from tpubwa_torch.utils.rounds import drive_rounds
+from tpubwa_torch.utils.timers import count
 
 QPAD = 192     # query window pad (== GA bucket Q)
 TWIN = 256     # reference window pad (== GA bucket T)
@@ -835,6 +836,7 @@ def se_text_batch(aligner, batch, read_id0: int, fields: dict,
     complex_rows = np.flatnonzero(~unmapped & ~flat_set)
     gen_rows.extend(int(b) for b in complex_rows)
     gen_rows = sorted(set(int(b) for b in gen_rows))
+    count(aligner.timers, "sam.generator_reads", len(gen_rows))
     if gen_rows:
         gens = [
             finalize.se_records_g(

@@ -30,6 +30,7 @@ from tpubwa_torch.index.fmindex import FMIndex
 from tpubwa_torch.io import sam as samio
 from tpubwa_torch.ops.localsw_cuda import localsw_core
 from tpubwa_torch.utils.rounds import drive_rounds
+from tpubwa_torch.utils.timers import count
 
 MIN_RATIO = 0.8
 MIN_DIR_CNT = 10
@@ -475,14 +476,15 @@ def align_pe_batch(aligner, b1, b2, pair_id0: int, handles=None) -> str:
     regs1, codes_dev1 = aligner.regions_batch(b1, seed_handle=h1), h1[2]
     regs2, codes_dev2 = aligner.regions_batch(b2, seed_handle=h2), h2[2]
     # dedup/sort before pairing (mem_align1_core does this)
-    regs1 = drive_rounds(
-        [finalize.sort_dedup_patch_g(opt, idx, b1.codes[i, : b1.lens[i]],
-                                     r) for i, r in enumerate(regs1)],
-        aligner.ga_exec)
-    regs2 = drive_rounds(
-        [finalize.sort_dedup_patch_g(opt, idx, b2.codes[i, : b2.lens[i]],
-                                     r) for i, r in enumerate(regs2)],
-        aligner.ga_exec)
+    with aligner.timers.phase("DEDUP"):
+        regs1 = drive_rounds(
+            [finalize.sort_dedup_patch_g(opt, idx, b1.codes[i, : b1.lens[i]],
+                                         r) for i, r in enumerate(regs1)],
+            aligner.ga_exec)
+        regs2 = drive_rounds(
+            [finalize.sort_dedup_patch_g(opt, idx, b2.codes[i, : b2.lens[i]],
+                                         r) for i, r in enumerate(regs2)],
+            aligner.ga_exec)
     pairs = list(zip(regs1, regs2))
     with aligner.timers.phase("PAIR"):
         pes = pestat(opt, idx.l_pac, pairs)
@@ -502,6 +504,7 @@ def align_pe_batch(aligner, b1, b2, pair_id0: int, handles=None) -> str:
                     gens.append(matesw_gen(opt, idx, pes, p,
                                            int(mate_b.lens[i]), ms,
                                            regs_m))
+        count(aligner.timers, "pair.rescue_jobs", len(gens))
         if gens:
             run_matesw_rounds(opt, gens, aligner.mat_dev)
     with aligner.timers.phase("SAM"):
@@ -662,6 +665,7 @@ def pe_sam_text(aligner, b1, b2, pair_id0: int, pairs, pes,
     keep_i = (set(flat[cores[4]].tolist()) if cores is not None
               else set())
     rest = sorted(set(range(B)) - keep_i)
+    count(aligner.timers, "sam.generator_reads", 2 * len(rest))
     if rest:
         _pe_generator_text(aligner, b1, b2, pair_id0, pairs, pes, rest,
                            other, marked=marked)
@@ -841,7 +845,8 @@ def align_pe_fastq(aligner, fq1: str, fq2: str, out, workers: int = 1,
         b1, b2, pair_id0 = payload
         return align_pe_batch(aligner, b1, b2, pair_id0, handles=handles)
 
-    kw = dict(chunk_dir=chunk_dir, manifest=manifest, shard=shard)
+    kw = dict(chunk_dir=chunk_dir, manifest=manifest, shard=shard,
+              timers=aligner.timers)
     try:
         if workers <= 1:
             run_dispatch_ahead(items(), dispatch, work, out, **kw)

@@ -3,7 +3,9 @@
 device extension waves -> native finalize -> flat SAM; paired ends add
 pairing and mate rescue (``align/pair.py``).
 
-Phase timers keep the reference's names (SMEM / SAL / CHAIN / BSW / SAM).
+Phase timers keep the reference's names (SMEM / SAL / CHAIN / BSW / SAM)
+and name the host steps around them (FASTQ, WRITE, REGS, DEDUP;
+``utils/timers``).
 Everything on the device runs on the Aligner's explicit ``device``, one
 device or a mesh of them (``parallel/mesh.py``); the native host library
 (``tpubwa_torch/native``) is required.
@@ -323,8 +325,9 @@ class Aligner:
     def regions_batch(self, batch, seed_handle=None):
         """Seed + chain + extend a ReadBatch; returns list[list[AlnReg]]."""
         fields, fbounds = self._regions_flat(batch, seed_handle=seed_handle)
-        return [flatsam._alnregs_for(fields, fbounds, b)
-                for b in range(batch.n)]
+        with self.timers.phase("REGS"):
+            return [flatsam._alnregs_for(fields, fbounds, b)
+                    for b in range(batch.n)]
 
     # ------------------------------------------------ full batch ----
 
@@ -466,7 +469,8 @@ def _check_chunk_manifest(chunk_dir: str, manifest: dict | None) -> None:
 def run_ordered_pool(items, work, out, workers: int, label: str = "reads",
                      chunk_dir: str | None = None,
                      manifest: dict | None = None,
-                     shard: tuple[int, int] | None = None) -> int:
+                     shard: tuple[int, int] | None = None,
+                     timers: PhaseTimers | None = None) -> int:
     """Generic pipelined driver: a reader thread streams work items,
     ``workers`` threads each process whole items (device calls from all
     workers interleave on the device's stream while host Python of one
@@ -486,10 +490,17 @@ def run_ordered_pool(items, work, out, workers: int, label: str = "reads",
     process only computes items with global_seq % n_hosts == host_id, but
     chunk files keep their GLOBAL sequence numbers — when every host has
     finished against the same chunk_dir, concatenating chunk_*.sam in name
-    order reproduces the single-host output exactly."""
+    order reproduces the single-host output exactly.
+
+    ``timers`` (an Aligner's) times the reader's pulls as ``FASTQ`` and
+    the writes of chunk files, progress lines and the output as
+    ``WRITE``."""
     import heapq
     import os
     import queue
+
+    if timers is None:
+        timers = PhaseTimers()
 
     if chunk_dir:
         os.makedirs(chunk_dir, exist_ok=True)
@@ -509,7 +520,13 @@ def run_ordered_pool(items, work, out, workers: int, label: str = "reads",
     def reader():
         try:
             lseq = 0
-            for gseq, (payload, n_units) in enumerate(items):
+            it = enumerate(items)
+            while True:
+                with timers.phase("FASTQ"):
+                    nxt = next(it, None)
+                if nxt is None:
+                    break
+                gseq, (payload, n_units) = nxt
                 if stop.is_set():
                     break
                 if shard is not None and gseq % shard[1] != shard[0]:
@@ -558,16 +575,17 @@ def run_ordered_pool(items, work, out, workers: int, label: str = "reads",
                 else:
                     text = work(payload)
                     if chunk_dir:
-                        tmp = chunk_path(gseq) + ".tmp"
-                        with open(tmp, "w") as f:
-                            f.write(text)
-                        os.replace(tmp, chunk_path(gseq))  # atomic publish
+                        with timers.phase("WRITE"):
+                            tmp = chunk_path(gseq) + ".tmp"
+                            with open(tmp, "w") as f:
+                                f.write(text)
+                            os.replace(tmp, chunk_path(gseq))  # atomic publish
             except BaseException as e:
                 err.append(e)
                 stop.set()
                 out_q.put(None)
                 return
-            with done_lock:
+            with timers.phase("WRITE"), done_lock:
                 n_done += n_units
                 print(f"[tpu-bwa-torch] {n_done} {label} processed",
                       file=sys.stderr)
@@ -585,11 +603,13 @@ def run_ordered_pool(items, work, out, workers: int, label: str = "reads",
             heapq.heappush(heap, item)
             while heap and heap[0][0] == want:
                 _, text = heapq.heappop(heap)
-                out.write(text)
+                with timers.phase("WRITE"):
+                    out.write(text)
                 want += 1
         while heap:  # error path: drain what completed
             _, text = heapq.heappop(heap)
-            out.write(text)
+            with timers.phase("WRITE"):
+                out.write(text)
 
     rt = threading.Thread(target=reader, daemon=True)
     wt = threading.Thread(target=writer, daemon=True)
@@ -611,7 +631,8 @@ def run_ordered_pool(items, work, out, workers: int, label: str = "reads",
 def run_dispatch_ahead(items, dispatch, work, out,
                        chunk_dir: str | None = None,
                        manifest: dict | None = None,
-                       shard: tuple[int, int] | None = None) -> int:
+                       shard: tuple[int, int] | None = None,
+                       timers: PhaseTimers | None = None) -> int:
     """The single-thread dispatch-ahead driver of SE and PE: item N+1's
     device seeding (``dispatch(payload) -> handle``) is issued before item
     N is finished (``work(payload, handle) -> text``, written to `out`).
@@ -621,10 +642,16 @@ def run_dispatch_ahead(items, dispatch, work, out,
     ``run_ordered_pool``: an item whose chunk file exists is neither
     dispatched nor aligned (its chunk is written out as it is), and only
     this host's items (global number % n_hosts == host_id) are taken.
+    ``timers`` (an Aligner's) times each pull of an item as ``FASTQ`` and
+    each write of a chunk file, the output and the progress line as
+    ``WRITE``.
 
     If the reader raises, the pending item is finished and written
     first, then the error propagates."""
     import os
+
+    if timers is None:
+        timers = PhaseTimers()
 
     if chunk_dir:
         os.makedirs(chunk_dir, exist_ok=True)
@@ -642,26 +669,30 @@ def run_dispatch_ahead(items, dispatch, work, out,
                 text = f.read()
         else:
             text = work(payload, handle)
-            if chunk_dir:
+        with timers.phase("WRITE"):
+            if chunk_dir and handle is not None:
                 tmp = chunk_path(gseq) + ".tmp"
                 with open(tmp, "w") as f:
                     f.write(text)
                 os.replace(tmp, chunk_path(gseq))  # atomic publish
-        out.write(text)
-        n_done += n_units
-        print(f"[tpu-bwa-torch] {n_done} reads processed", file=sys.stderr)
+            out.write(text)
+            n_done += n_units
+            print(f"[tpu-bwa-torch] {n_done} reads processed",
+                  file=sys.stderr)
 
     pend = None  # (gseq, payload, n_units, handle | None)
     it = enumerate(items)
     while True:
         try:
-            gseq, (payload, n_units) = next(it)
-        except StopIteration:
-            break
+            with timers.phase("FASTQ"):
+                nxt = next(it, None)
         except Exception:
             if pend is not None:
                 finish(*pend)
             raise
+        if nxt is None:
+            break
+        gseq, (payload, n_units) = nxt
         if shard is not None and gseq % shard[1] != shard[0]:
             continue  # another host's item
         handle = (None if chunk_dir and os.path.exists(chunk_path(gseq))
@@ -699,7 +730,8 @@ def run_se_pipeline(aligner: Aligner, fq1: str, out, workers: int = 1,
         batch, read_id0 = payload
         return aligner.align_se_text(batch, read_id0, seed_handle=handle)
 
-    kw = dict(chunk_dir=chunk_dir, manifest=manifest, shard=shard)
+    kw = dict(chunk_dir=chunk_dir, manifest=manifest, shard=shard,
+              timers=aligner.timers)
     if workers <= 1:
         return run_dispatch_ahead(items(), dispatch, work, out, **kw)
     return run_ordered_pool(items(), work, out, workers, **kw)

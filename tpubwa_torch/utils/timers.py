@@ -1,29 +1,60 @@
-"""Per-phase wall timers, mirroring the reference's built-in phase breakdown.
+"""Per-phase wall timers and work counters: the port's one tracer.
 
 The reference prints at exit: ``Overall time / MEM_PROCESS_SEQ() / Total
 kernel / BSW`` plus SMEM/SAL components (SURVEY.md §5 "Tracing / profiling").
-We keep the same phase names so profiles are comparable:
+We keep the same phase names so profiles are comparable, and add the
+host steps around them.  No phase nests inside another:
 
+  FASTQ — the pull of the next batch: FASTQ parsing and batch building of
+          one end or both (the drivers of ``align/pipeline.py``)
   SMEM  — FM-index seeding (backward search + SMEM generation)
   SAL   — suffix-array lookup (seed position resolution)
   CHAIN — seed chaining + filtering
   BSW   — banded Smith-Waterman extension (the DP kernel)
+  REGS  — one ``AlnReg`` object a region (``Aligner.regions_batch``)
+  DEDUP — PE's sort / dedup / patch rounds before pairing
   PAIR  — PE pairing + mate rescue
-  SAM   — SAM record construction + write
-  IO    — FASTQ read / device transfer
+  SAM   — SAM record construction
+  WRITE — a batch's text to the output (and its chunk file), the progress
+          line
+
+Counters (``count``; once a batch or a call, never a read):
+
+  sam.generator_reads — reads the generator tier of SAM rendered
+  bsw.calls, bsw.rounds — ``flatext.run_phased`` calls and their rounds
+  pair.rescue_jobs — mate-rescue jobs that PAIR built
+
+Under ``-t N`` the workers share one PhaseTimers, so a phase's total is
+summed over threads and may exceed the wall.  While a ``torch.profiler``
+records, each phase is also a ``record_function`` range named
+``tpubwa.<NAME>``, on the profiler's clock beside the kernels.
 """
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+
+RANGE_PREFIX = "tpubwa."
+
+
+def _profiler_range(name: str):
+    """A ``record_function`` range for phase `name` while a torch profiler
+    records; None otherwise, without a call into the profiler (a profiler
+    cannot run before torch is imported)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    return prof.record_function(RANGE_PREFIX + name)
 
 
 class PhaseTimers:
     def __init__(self) -> None:
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
+        self.counters: dict[str, int] = defaultdict(int)
         self._t0 = time.monotonic()
         # totals/counts updates are read-modify-write; the pipeline's -t
         # workers share one PhaseTimers (ADVICE r2: racy counters)
@@ -31,14 +62,19 @@ class PhaseTimers:
 
     @contextmanager
     def phase(self, name: str):
-        t = time.monotonic()
-        try:
-            yield
-        finally:
-            dt = time.monotonic() - t
-            with self._lock:
-                self.totals[name] += dt
-                self.counts[name] += 1
+        with _profiler_range(name) or nullcontext():
+            t = time.monotonic()
+            try:
+                yield
+            finally:
+                dt = time.monotonic() - t
+                with self._lock:
+                    self.totals[name] += dt
+                    self.counts[name] += 1
+
+    def count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self.counters[name] += n
 
     def overall(self) -> float:
         return time.monotonic() - self._t0
@@ -47,4 +83,15 @@ class PhaseTimers:
         lines = [f"Overall time (sec): {self.overall():.2f}"]
         for name, tot in sorted(self.totals.items(), key=lambda kv: -kv[1]):
             lines.append(f"  {name}: {tot:.2f} (n={self.counts[name]})")
+        for name, n in sorted(self.counters.items()):
+            lines.append(f"  {name}: {n}")
         return "\n".join(lines)
+
+
+def count(timers, name: str, n: int = 1) -> None:
+    """Add `n` to counter `name` of `timers` (an Aligner's ``timers``).  A
+    tracer put in a PhaseTimers' place may keep phases only; it is left
+    alone."""
+    add = getattr(timers, "count", None)
+    if add is not None:
+        add(name, n)

@@ -822,8 +822,10 @@ def align_pe_fastq(aligner, fq1: str, fq2: str, out, workers: int = 1,
     opt = aligner.opt
 
     def items():
-        it1 = stream_batches(fq1, opt.batch_reads, opt.max_read_len)
-        it2 = stream_batches(fq2, opt.batch_reads, opt.max_read_len)
+        it1 = stream_batches(fq1, opt.batch_reads, opt.max_read_len,
+                             timers=aligner.timers)
+        it2 = stream_batches(fq2, opt.batch_reads, opt.max_read_len,
+                             timers=aligner.timers)
         pair_id0 = 0
         while True:
             b1 = next(it1, None)

@@ -719,7 +719,8 @@ def run_se_pipeline(aligner: Aligner, fq1: str, out, workers: int = 1,
 
     def items():
         read_id0 = 0
-        for batch in stream_batches(fq1, opt.batch_reads, opt.max_read_len):
+        for batch in stream_batches(fq1, opt.batch_reads, opt.max_read_len,
+                                    timers=aligner.timers):
             yield (batch, read_id0), batch.n
             read_id0 += batch.n
 

@@ -9,11 +9,23 @@ from __future__ import annotations
 
 import dataclasses
 import gzip
+import io
+import itertools
+import sys
 from typing import Iterator
 
 import numpy as np
 
-from tpubwa_torch.utils.dna import encode
+from tpubwa_torch.utils.dna import NT4_TABLE, encode
+from tpubwa_torch.utils.timers import count
+
+READ_SIZE = 1 << 20          # the most bytes one read1 call asks for
+_NT4 = NT4_TABLE.tobytes()   # the table as a bytes.translate map
+# bytes that str's split() and strip() take for white space and bytes'
+# do not: a block that holds one goes to the line parser
+_STR_ONLY_SPACE = (b"\x1c", b"\x1d", b"\x1e", b"\x1f")
+_SPACE = np.zeros(256, dtype=bool)   # what bytes.strip() strips
+_SPACE[list(b" \t\n\r\x0b\x0c")] = True
 
 
 @dataclasses.dataclass
@@ -52,23 +64,28 @@ def _open(path: str):
 
 def read_fastq(path: str) -> Iterator[Read]:
     with _open(path) as f:
-        while True:
-            h = f.readline()
-            if not h:
-                return
-            h = h.strip()
-            if not h:
-                continue
-            seq = f.readline().strip()
-            plus = f.readline()
-            qual = f.readline().strip()
-            if not h.startswith(b"@") or not plus.startswith(b"+"):
-                raise ValueError(f"malformed FASTQ near {h[:50]!r}")
-            parts = h[1:].split(None, 1)
-            name = parts[0].decode()
-            comment = parts[1].decode() if len(parts) > 1 else ""
-            yield Read(name=name, seq=seq.decode(), qual=qual.decode(),
-                       comment=comment)
+        yield from _records(f)
+
+
+def _records(f) -> Iterator[Read]:
+    """Records off anything with ``readline()``, a line at a time."""
+    while True:
+        h = f.readline()
+        if not h:
+            return
+        h = h.strip()
+        if not h:
+            continue
+        seq = f.readline().strip()
+        plus = f.readline()
+        qual = f.readline().strip()
+        if not h.startswith(b"@") or not plus.startswith(b"+"):
+            raise ValueError(f"malformed FASTQ near {h[:50]!r}")
+        parts = h[1:].split(None, 1)
+        name = parts[0].decode()
+        comment = parts[1].decode() if len(parts) > 1 else ""
+        yield Read(name=name, seq=seq.decode(), qual=qual.decode(),
+                   comment=comment)
 
 
 def batch_reads(reads: list[Read], batch_size: int, max_len: int,
@@ -82,8 +99,6 @@ def batch_reads(reads: list[Read], batch_size: int, max_len: int,
     the read in the batch with length 0 so it is reported as unmapped
     (with a stderr warning) instead of aborting the whole run.
     """
-    import sys as _sys
-
     for i in range(0, len(reads), batch_size):
         chunk = reads[i : i + batch_size]
         b = batch_size if pad_to_batch else len(chunk)
@@ -94,7 +109,7 @@ def batch_reads(reads: list[Read], batch_size: int, max_len: int,
                 if on_too_long == "skip":
                     print(f"[tpu-bwa] warning: read {r.name} length "
                           f"{len(r.seq)} > max read length {max_len}; "
-                          "emitting it unmapped", file=_sys.stderr)
+                          "emitting it unmapped", file=sys.stderr)
                     continue
                 raise ValueError(
                     f"read {r.name} length {len(r.seq)} > max_len {max_len}")
@@ -109,16 +124,148 @@ def batch_reads(reads: list[Read], batch_size: int, max_len: int,
         )
 
 
-def stream_batches(path: str, batch_size: int, max_len: int
+def stream_batches(path: str, batch_size: int, max_len: int, timers=None
                    ) -> Iterator[ReadBatch]:
     """Stream fixed-shape batches straight off a FASTQ file without
-    materializing the whole file (fastmap stage-1 behavior)."""
-    import itertools
+    materializing the whole file (fastmap stage-1 behavior).
 
-    it = read_fastq(path)
-    while True:
-        chunk = list(itertools.islice(it, batch_size))
+    Each batch is parsed from a block of bytes at once (``_parse_block``):
+    the next ``4 * batch_size`` lines.  The bytes are taken with ``read1``,
+    which returns what the stream holds instead of waiting for a count, and
+    no more are asked for once the block is whole: ``align_pe_fastq`` reads
+    two pipes in lockstep, and a writer that fills batch k of read 1 before
+    batch k of read 2 would otherwise block against the reader.  Bytes past
+    the block are kept for the next one.
+
+    A block the block parser does not take (a blank or stray line, a lead
+    other than ``@`` / ``+``, a byte outside ASCII, a truncated last
+    record) is parsed by ``read_fastq``'s line parser and ``batch_reads``,
+    which give the same batches and raise the same errors; each such batch
+    counts one ``fastq.fallback_batches`` in `timers` (an Aligner's).
+    Reads longer than `max_len` stay in the batch with length 0 and a
+    warning (``batch_reads``' ``on_too_long="skip"``)."""
+    with _open(path) as f:
+        carry = b""
+        while True:
+            buf = _read_lines(f, carry, 4 * batch_size)
+            if not buf:
+                return
+            batch, carry = _parse_block(buf, batch_size, max_len)
+            if batch is not None:
+                yield batch
+                continue
+            count(timers, "fastq.fallback_batches")
+            lines = _Carry(buf, f)
+            chunk = list(itertools.islice(_records(lines), batch_size))
+            if not chunk:
+                return
+            carry = lines.rest()
+            yield from batch_reads(chunk, batch_size, max_len,
+                                   on_too_long="skip")
+
+
+def _read_lines(f, carry: bytes, n: int) -> bytes:
+    """`carry`, then the stream's bytes until they hold `n` lines or the
+    stream ends."""
+    parts, have = [carry], _newlines(carry)
+    while have < n:
+        chunk = f.read1(READ_SIZE)
         if not chunk:
-            return
-        yield from batch_reads(chunk, batch_size, max_len,
-                               on_too_long="skip")
+            break
+        parts.append(chunk)
+        have += _newlines(chunk)
+    return b"".join(parts)
+
+
+def _newlines(b: bytes) -> int:
+    # numpy counts a byte several times faster than bytes.count
+    return int(np.count_nonzero(np.frombuffer(b, dtype=np.uint8) == 10))
+
+
+def _parse_block(buf: bytes, batch_size: int, max_len: int
+                 ) -> tuple[ReadBatch | None, bytes]:
+    """The batch of the first ``4 * batch_size`` lines of `buf` (all of it
+    at the stream's end) and the bytes after them; (None, `buf`) where the
+    block is not four-line records of ASCII whose leads are ``@`` and
+    ``+``."""
+    a = np.frombuffer(buf, dtype=np.uint8)
+    ends = np.flatnonzero(a == 10)
+    if len(ends) >= 4 * batch_size:
+        ends = ends[:4 * batch_size]
+        block, carry = buf[:ends[-1] + 1], buf[ends[-1] + 1:]
+    else:  # the stream's last block
+        block, carry = buf, b""
+        if not buf.endswith(b"\n"):
+            block += b"\n"
+            ends = np.append(ends, len(buf))
+    if len(ends) % 4 or any(c in block for c in _STR_ONLY_SPACE):
+        return None, buf
+    starts = np.concatenate(([0], ends[:-1] + 1))
+    firsts = a[starts].reshape(-1, 4)
+    if not ((firsts[:, 0] == ord("@")).all()
+            and (firsts[:, 2] == ord("+")).all()):
+        return None, buf
+    try:
+        lines = block.decode("ascii").split("\n")
+    except UnicodeDecodeError:
+        return None, buf
+    del lines[-1]  # after the block's last newline
+    heads, seqs, quals = lines[0::4], lines[1::4], lines[3::4]
+    n = len(heads)
+    lasts = a[ends - 1].reshape(-1, 4)
+    edges = np.concatenate([firsts[:, 1], lasts[:, 1], firsts[:, 3],
+                            lasts[:, 3]])
+    if _SPACE[edges].any():
+        # CRLF, or an empty line: strip each line as the line parser does
+        seqs = [s.strip() for s in seqs]
+        quals = [q.strip() for q in quals]
+        lens = np.fromiter(map(len, seqs), dtype=np.int32, count=n)
+    else:
+        lens = (ends[1::4] - starts[1::4]).astype(np.int32)
+    names = [h[1:].split(None, 1)[0] for h in heads]
+    flat = np.frombuffer("".join(seqs).encode().translate(_NT4),
+                         dtype=np.uint8)
+    long = lens > max_len
+    if long.any():
+        for i in np.flatnonzero(long):
+            print(f"[tpu-bwa] warning: read {names[i]} length {lens[i]} > "
+                  f"max read length {max_len}; emitting it unmapped",
+                  file=sys.stderr)
+        flat = flat[np.repeat(~long, lens)]
+        lens[long] = 0
+    codes = np.full((batch_size, max_len), 4, dtype=np.uint8)
+    _place(codes, flat, lens)
+    out_lens = np.zeros(batch_size, dtype=np.int32)
+    out_lens[:n] = lens
+    return ReadBatch(codes=codes, lens=out_lens, names=names, seqs=seqs,
+                     quals=quals), carry
+
+
+def _place(codes: np.ndarray, flat: np.ndarray, lens: np.ndarray) -> None:
+    """Row i of `codes` takes the next ``lens[i]`` codes of `flat`, a run
+    of rows of one length at a time: one reshape of a slice of `flat` a
+    run (one run where every read has the same length)."""
+    bounds = [0, *(np.flatnonzero(np.diff(lens)) + 1).tolist(), len(lens)]
+    offs = np.concatenate(([0], np.cumsum(lens))).tolist()
+    for r0, r1 in zip(bounds[:-1], bounds[1:]):
+        codes[r0:r1, :lens[r0]] = flat[offs[r0]:offs[r1]].reshape(
+            r1 - r0, lens[r0])
+
+
+class _Carry:
+    """``readline()`` over bytes already taken off a stream, then over the
+    stream: the line parser's input where a block falls back."""
+
+    def __init__(self, head: bytes, f):
+        self._head = io.BytesIO(head)
+        self._f = f
+
+    def readline(self) -> bytes:
+        line = self._head.readline()
+        if line.endswith(b"\n"):
+            return line
+        return line + self._f.readline()
+
+    def rest(self) -> bytes:
+        """The bytes taken that the line parser has not read."""
+        return self._head.read()

@@ -23,6 +23,8 @@ Counters (``count``; once a batch or a call, never a read):
   sam.generator_reads — reads the generator tier of SAM rendered
   bsw.calls, bsw.rounds — ``flatext.run_phased`` calls and their rounds
   pair.rescue_jobs — mate-rescue jobs that PAIR built
+  fastq.fallback_batches — batches the line parser took
+          (``io/fastq.py::stream_batches``)
 
 Under ``-t N`` the workers share one PhaseTimers, so a phase's total is
 summed over threads and may exceed the wall.  While a ``torch.profiler``

@@ -131,7 +131,14 @@ Phases (any failure exits non-zero):
    its plain version and the SA on utils.sim.high_word_index (counts and
    SA values + 2^31 + 12,345), and K2's three rounds and K5 on the index
    with its rows moved up by 2^31 + 12,352 (against the plain versions
-   and the unmoved index's results).
+   and the unmoved index's results); (h) 2x250 pairs (insert 550 +- 100,
+   10,000 pairs) through align_pe_fastq: every batch in the wide bucket,
+   one primary an end, no rescue job cut, the generator tier at most 1 %
+   of the reads, the counters printed, and the run's own kernel calls
+   against their plain versions: its first left and right K1 waves (and
+   their retries) at Q 256, under K1 and K1b; its first call of each of
+   K2's three rounds on the 256-wide codes; its first K4 round (Q 256,
+   T 2,048); and its K3 calls (Q 256, T 384).
 12. The per-read and fused paths.  (a) The first batch of phase 4's SE
    reads and of phase 5's read-1 ends (repeats, multi-region) through
    Aligner.seed_batch -> chain_batch (native chaining) ->
@@ -181,6 +188,7 @@ null throughout.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
@@ -188,6 +196,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -2201,6 +2210,105 @@ def chr21_pe(fx: dict, device: str = "cuda") -> dict:
     return dict(sw=sw[0][:2], ga=ga)
 
 
+def chr21_pe250(fx: dict, device: str = "cuda") -> dict:
+    """11(h): 2x250 pairs through align_pe_fastq on the chr21-scale index
+    (the wide bucket), counted, with its first K1 waves, its first call of
+    each K2 round, its first rescue round and its _ga_rows calls
+    captured; K2's calls are checked here against the plain chains."""
+    from tpubwa_torch.align import flatsam, pair
+    from tpubwa_torch.align.pipeline import Aligner
+    from tpubwa_torch.config import LONG_READ_LEN, WIDE, MemOptions
+    from tpubwa_torch.io.fasta import read_fasta
+    from tpubwa_torch.ops import smem_chain as plain
+    from tpubwa_torch.ops import smem_chain_cuda as k2
+    from tpubwa_torch.ops.extend_cuda import extend_core
+    from tpubwa_torch.utils import sim
+
+    d = os.path.dirname(fx["fa"])
+    fq1, fq2 = (os.path.join(d, f"pe250_{e}.fq") for e in (1, 2))
+    contigs, codes, _ = read_fasta(fx["fa"])
+    r1, r2 = sim.simulate_pairs(codes, contigs, CHR21_PAIRS, length=250,
+                                isize_mean=550, isize_std=100, err=0.01,
+                                seed=8)
+    del codes
+    sim.write_fastq(fq1, r1)
+    sim.write_fastq(fq2, r2)
+    al = Aligner(fx["idx"], MemOptions(batch_reads=BATCH), device=device)
+    sw: list = []
+    ga: list = []
+    waves: dict = {}
+    rounds = {r: [] for r in ("smem_round1_core", "smem_through_core",
+                              "smem_round3_core")}
+    al.ext_core = wave_capture(waves)
+
+    def run(a, out):
+        check(pair.align_pe_fastq(a, fq1, fq2, out) == 0,
+              "11h: 2x250 PE exits 0")
+
+    # K2's rounds are captured where the chains call them (``_cores()``):
+    # the names on smem_chain_cuda count the launches and stay as they are
+    shim = types.SimpleNamespace(**{r: getattr(k2, r) for r in rounds})
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(capture_first(pair, "localsw_core", sw))
+        stack.enter_context(capture_first(flatsam, "_ga_rows", ga,
+                                          limit=1024))
+        for name, calls in rounds.items():
+            stack.enter_context(capture_first(shim, name, calls))
+        stack.callback(setattr, plain, "_cores", plain._cores)
+        plain._cores = lambda: shim
+        text, cold, n = _pass(al, run)
+    al.ext_core = extend_core
+    c = al.timers.counters
+    flags = [int(ln.split("\t")[1]) for ln in _body(text).splitlines()]
+    prim = [f for f in flags if not f & 0x900]
+    batches = -(-CHR21_PAIRS // BATCH)
+    print(f"[11h] 2x250 PE counted run: {2 * CHR21_PAIRS} reads in "
+          f"{cold:.2f} s (cold); launches {_launch_line(n)}; {len(prim)} "
+          f"primaries, mapped {sum(not f & 4 for f in prim)}, proper pair "
+          f"{sum(bool(f & 2) for f in prim)}; counters "
+          f"{json.dumps(dict(sorted(c.items())))}")
+    print_phases("11h", al.timers)
+    check(len(prim) == 2 * CHR21_PAIRS, "11h: one primary per end")
+    check(c["fastq.wide_batches"] == batches,
+          f"11h: every batch in the wide bucket ({batches})")
+    check(c["pair.rescue_truncated"] == 0, "11h: no rescue job cut")
+    check(c["sam.generator_reads"] <= 0.01 * 2 * CHR21_PAIRS,
+          "11h: the generator tier took at most 1 % of the reads")
+    check(sum(bool(f & 2) for f in prim) >= 0.95 * len(prim),
+          "11h: at least 95 % of the ends in proper pairs")
+    check(n["localsw"] > 0 and n["extend"] > 0 and n["global_align"] > 0,
+          f"11h: the 2x250 path launched K1, K3 and K4 ({n})")
+    q, t = sw[0][0][0], sw[0][0][2]
+    check(q.shape[1] == WIDE.rescue_q and t.shape[1] in (256, WIDE.rescue_t),
+          f"11h: the rescue round ran at the wide pads ({q.shape[1]} x "
+          f"{t.shape[1]})")
+    check(all(a[0].shape[1] == WIDE.sam_q and a[1].shape[1] == WIDE.sam_t
+              for a, _, _ in ga),
+          "11h: every _ga_rows call on the wide windows")
+    check({"left", "right"} <= set(waves)
+          and all(a[0].shape[1] == WIDE.ext_q for a, _ in waves.values()),
+          f"11h: the first left and right K1 waves captured at Q "
+          f"{WIDE.ext_q} ({sorted(waves)})")
+    # K2's first call of each round on the run's 256-wide codes
+    err = 0
+    plains = {"smem_round1_core": plain.smem_round1_chain,
+              "smem_through_core": plain.smem_through_chain,
+              "smem_round3_core": plain.smem_round3_chain}
+    with keep_launches():
+        for name, calls in rounds.items():
+            check(len(calls) == 1, f"11h: K2 {name} captured")
+            args, kw, _ = calls[0]
+            check(args[1].shape[1] == LONG_READ_LEN,
+                  f"11h: K2 {name} ran on codes {LONG_READ_LEN} wide")
+            got = getattr(k2, name)(*args, **kw)
+            err = max(err, _same_smems(f"11h 2x250 {name}", got,
+                                       plains[name](*args, **kw)))
+            print(f"[11h] K2 {name}: B={args[1].shape[0]} "
+                  f"L={args[1].shape[1]} cap {kw['cap']}: kernel == plain on "
+                  f"whole buffers, {int(got.n.sum())} SMEMs")
+    return dict(sw=sw[0][:2], ga=ga, waves=waves, smem=dict(max_abs_err=err))
+
+
 def chr21_modes(fx: dict, se_body: str, device: str = "cuda") -> list:
     """11(d): --sa-shift 5 (K5 counted, its calls captured) and the forced
     wide layout; each SE body == 11(b)'s.  Returns the K5 calls."""
@@ -2357,6 +2465,7 @@ def phase_chr21(res: dict) -> None:
     fx = chr21_fixture()
     se = chr21_se(fx)
     pe = chr21_pe(fx)
+    pe250 = chr21_pe250(fx)
     k5_seen = chr21_modes(fx, se["body"])
     # (e) every kernel of the path against its plain version on this index
     res["smem_chain"].append(
@@ -2368,6 +2477,14 @@ def phase_chr21(res: dict) -> None:
     res["global_align"].append(ga_calls("chr21 PE", pe["ga"]))
     res["localsw"].append(compare("localsw", "chr21 PE batch 1 first rescue "
                                   "round", *pe["sw"]))
+    res["global_align"].append(ga_calls("chr21 2x250", pe250["ga"]))
+    res["localsw"].append(compare("localsw", "chr21 2x250 batch 1 first "
+                                  "rescue round", *pe250["sw"]))
+    for side, (a, k) in sorted(pe250["waves"].items()):
+        for kern in ("extend", "extend_b"):
+            res[kern].append(compare(kern, f"chr21 2x250 batch 1 {side} "
+                                     "core", a, k))
+    res["smem_chain"].append(pe250["smem"])
     k5_calls(k5_seen, 5, tag="11e")
     # (f) the card's dependent gathers on this index's tables
     gather_rate(fx["idx"], tag="11f", beyond_l2=True)

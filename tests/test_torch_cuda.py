@@ -1,10 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 (csrc/extend.cu) and K1b (csrc/extend_b.cu) against ``_extend_core``,
-K4 (csrc/localsw.cu) against ``localsw_batch``, K5 (csrc/sa_sampled.cu)
-against ``sa_lookup_sampled``, K2 (csrc/smem_chain.cu; three rounds,
-int32 and int64) against the plain chains, K3 (csrc/global_align.cu; pack
-and step rows) against ``_ga_rows_plain`` and
+K1 (csrc/extend.cu) and K1b (csrc/extend_b.cu) against ``_extend_core``
+(up to Q 256, the wide bucket's query window), K4 (csrc/localsw.cu)
+against ``localsw_batch`` (up to Q 256, T 2,048: the wide bucket's
+rescue pads), K5 (csrc/sa_sampled.cu) against ``sa_lookup_sampled``, K2
+(csrc/smem_chain.cu; three rounds, int32 and int64) against the plain
+chains, K3 (csrc/global_align.cu; pack and step rows; up to Q 256, T 384,
+the wide bucket's SAM windows) against ``_ga_rows_plain`` and
 ``global_align_cigar_batch``, exact on every field, and each wrapper's
 launch counter (K1, K1b and K4 also on the adversarial job sets of
 ``utils.sim``, with scores beyond 16 bits among them, K5 on its edge rows
@@ -67,7 +69,7 @@ def _check_extend(core, cuda, J, Q, T):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("J,Q,T", [(1, 8, 8), (300, 64, 96),
-                                   (2048, 192, 768)])
+                                   (2048, 192, 768), (2049, 256, 768)])
 def test_kernel_matches_plain_on_card(cuda, J, Q, T):
     from tpubwa_torch.ops.extend_cuda import extend_core
 
@@ -76,7 +78,7 @@ def test_kernel_matches_plain_on_card(cuda, J, Q, T):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("J,Q,T", [(1, 8, 8), (301, 70, 96),
-                                   (2048, 192, 768)])
+                                   (2048, 192, 768), (2049, 256, 768)])
 def test_warp_kernel_matches_plain_on_card(cuda, J, Q, T):
     from tpubwa_torch.ops.extend_cuda import extend_core_b
 
@@ -85,7 +87,7 @@ def test_warp_kernel_matches_plain_on_card(cuda, J, Q, T):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("J,Q,T", [(1, 8, 8), (300, 100, 256),
-                                   (1024, 192, 1024)])
+                                   (1024, 192, 1024), (513, 256, 2048)])
 def test_localsw_kernel_matches_plain_on_card(cuda, J, Q, T):
     from tpubwa_torch.ops.localsw import localsw_batch
     from tpubwa_torch.ops.localsw_cuda import localsw_core
@@ -546,8 +548,9 @@ def test_smem_chain_kernel_matches_plain_on_edge_reads(cuda, cap, wide):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(192, 256), (64, 128), (320, 512)],
-                         ids=["192x256", "64x128", "320x512"])
+@pytest.mark.parametrize("shape", [(192, 256), (64, 128), (320, 512),
+                                   (256, 384)],
+                         ids=["192x256", "64x128", "320x512", "256x384"])
 @pytest.mark.parametrize("gaps", [dict(o_del=6, e_del=1, o_ins=6, e_ins=1),
                                   dict(o_del=4, e_del=2, o_ins=7, e_ins=1)],
                          ids=["default", "skewed"])
@@ -555,8 +558,10 @@ def test_global_align_kernel_matches_plain_on_edge_lanes(cuda, gaps, shape):
     """K3's two outputs on ``utils.sim.ga_edge_lanes``: w = -1, 0 and
     >= Q + T, the corner outside the band, qlen and tlen 0 and 1,
     nseg > GA_K, long leading and trailing deletions, M = 1103 (a
-    multiple of no warp or block size) and M = 1; at 192x256 and 320x512
-    the second launch takes the wide lanes, at 64x128 there is none."""
+    multiple of no warp or block size) and M = 1; at 192x256, 320x512
+    and 256x384 (the wide bucket's flat SAM windows, whose full-matrix
+    store needs more than 48 KB of shared memory a block) the second
+    launch takes the wide lanes, at 64x128 there is none."""
     from tpubwa_torch.align.flatsam import GA_K, _ga_rows, _ga_rows_plain
     from tpubwa_torch.ops import global_align_cuda as k3
     from tpubwa_torch.ops.global_align import global_align_cigar_batch

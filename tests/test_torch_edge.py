@@ -5,7 +5,10 @@ package.
   too long, short) plus a read with an island of 20 N and reads of 18
   and 19 bases (just under and at the minimum seed length): the SAM
   equals the JAX package's and keeps that test's gates, and repeated
-  runs are identical.
+  runs are identical.  "too long" is past the port's 256 bp, so the batch
+  stays in the narrow bucket, 160 wide, as the JAX package's.  A read of
+  200 bp, which the JAX package leaves unmapped, the port aligns in a
+  FASTQ of its own (the wide bucket).
 * tests/test_fuzz_remainders.py's batch sizes 7, 32 and 61 (odd tail
   batches) give the JAX package's text, and so do its length extremes.
 """
@@ -22,6 +25,7 @@ from tpubwa.io.fasta import Contig
 from tpubwa.io.fastq import Read, batch_reads
 from tpubwa.utils import sim
 from tpubwa.utils.dna import decode
+from tpubwa_torch.io.fastq import stream_batches
 
 torch.set_num_threads(1)
 
@@ -67,6 +71,8 @@ def _jax(ref_path, fq):
 
 
 def test_edge_reads_match_jax(ref, tmp_path):
+    from tpubwa_torch.config import LONG_READ_LEN
+
     ref_path, codes = ref
     max_len = 160  # MemOptions default max_read_len
     good = decode(codes[1000:1000 + 150])
@@ -75,7 +81,7 @@ def test_edge_reads_match_jax(ref, tmp_path):
         ("one_base", "A"),
         ("all_n", "N" * 100),
         ("max_len", decode(codes[2000:2000 + max_len])),
-        ("too_long", decode(codes[:max_len + 40])),
+        ("too_long", decode(codes[:LONG_READ_LEN + 40])),
         ("good", good),
         ("short", good[:8]),
         ("n_island", good[:65] + "N" * 20 + good[85:]),
@@ -84,6 +90,7 @@ def test_edge_reads_match_jax(ref, tmp_path):
     ]
     fq = str(tmp_path / "edge.fq")
     _fastq(fq, reads)
+    assert next(stream_batches(fq, 32, max_len)).codes.shape[1] == max_len
     recs = _port(ref_path, fq)
     assert recs == _jax(ref_path, fq)
     by_name = {}
@@ -99,6 +106,23 @@ def test_edge_reads_match_jax(ref, tmp_path):
     assert int(by_name["good"][0][3]) == 1001
     assert int(by_name["good"][0][4]) > 0
     assert int(by_name["n_island"][0][3]) == 1001
+
+
+def test_a_200bp_read_aligns_in_the_wide_bucket(ref, tmp_path):
+    """A 200-bp read, past the JAX package's 160 bp, runs in the port's
+    wide bucket (with a 150-bp read padded to it) and maps end to end."""
+    from tpubwa_torch.config import LONG_READ_LEN
+
+    ref_path, codes = ref
+    fq = str(tmp_path / "long.fq")
+    _fastq(fq, [("long", decode(codes[3000:3200])),
+                ("good", decode(codes[1000:1150]))])
+    assert next(stream_batches(fq, 32, 160)).codes.shape[1] == LONG_READ_LEN
+    by_name = {f[0]: f for f in (ln.split("\t") for ln in _port(ref_path, fq))}
+    assert set(by_name) == {"long", "good"}
+    for name, pos, cigar in (("long", 3001, "200M"), ("good", 1001, "150M")):
+        assert not int(by_name[name][1]) & 4
+        assert (int(by_name[name][3]), by_name[name][5]) == (pos, cigar)
 
 
 def test_edge_reads_repeat_identical(ref, tmp_path):

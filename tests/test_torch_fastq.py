@@ -4,12 +4,16 @@ batch's records from a block of bytes at once.
 * Every batch equals, field by field (``codes``, ``lens``, ``names``,
   ``seqs``, ``quals``) and in the warnings it prints, what the JAX
   package's ``tpubwa.io.fastq.stream_batches`` (a line parser, independent
-  of the port's code) gives, on FASTQ texts made here: equal,
-  nearly equal and ragged lengths (0 to ``max_len + 5``), lowercase, ``N``
-  and IUPAC bases, CRLF, blank lines, comments with tabs, bytes outside
-  ASCII, a last batch short of ``batch_size``, a ``.gz`` file; each with
-  the stream read a byte, 7 bytes or a whole ``READ_SIZE`` at a time, so
-  that records split at every offset of a read.
+  of the port's code) gives at the batch's bucket: at ``max_len`` where no
+  read of the batch is longer, else at ``LONG_READ_LEN`` (the JAX package
+  has one width; the port's wide bucket is its batch at that width).  On
+  FASTQ texts made here: equal, nearly equal and ragged lengths (0 to
+  ``max_len + 5``), reads past ``LONG_READ_LEN`` in narrow and in wide
+  batches, lowercase, ``N`` and IUPAC bases, CRLF, blank lines, comments
+  with tabs, bytes outside ASCII, a last batch short of ``batch_size``, a
+  ``.gz`` file; each with the stream read a byte, 7 bytes or a whole
+  ``READ_SIZE`` at a time, so that records split at every offset of a
+  read.
   ``fastq.fallback_batches`` counts 0 on clean text and more on the rest.
 * Malformed text raises the same ``ValueError`` after the same batches as
   the JAX package's reader.
@@ -28,6 +32,7 @@ import numpy as np
 import pytest
 
 from tpubwa.io.fastq import stream_batches as reference_batches
+from tpubwa_torch.config import LONG_READ_LEN
 from tpubwa_torch.io import fastq
 from tpubwa_torch.io.fastq import stream_batches
 from tpubwa_torch.utils.timers import PhaseTimers
@@ -63,12 +68,19 @@ def _case(name):
         lens = equal.copy()
         lens[[15, 26, 27, 28, 29, 30, 31]] = 29
         return _text(_records(rng, n, lens)).encode(), True
-    if name == "ragged":                  # 0 .. MAX_LEN + 5, some too long
+    if name == "ragged":                  # 0 .. MAX_LEN + 5, some wide
         lens = rng.integers(0, MAX_LEN + 6, n)
         lens[:3] = [0, MAX_LEN, MAX_LEN + 1]
+        lens[BATCH:2 * BATCH] = np.minimum(lens[BATCH:2 * BATCH], MAX_LEN)
         return _text(_records(rng, n, lens)).encode(), True
-    if name == "all_too_long":
+    if name == "all_too_long":            # every read in the wide bucket
         lens = np.full(n, MAX_LEN + 5)
+        return _text(_records(rng, n, lens)).encode(), True
+    if name == "past_long":               # reads the port cannot take
+        lens = rng.integers(0, MAX_LEN + 1, n)
+        lens[[3, 9]] = [LONG_READ_LEN + 1, LONG_READ_LEN + 40]   # narrow
+        lens[[BATCH + 2, BATCH + 5]] = [LONG_READ_LEN, LONG_READ_LEN + 1]
+        lens[2 * BATCH + 7] = MAX_LEN + 1                        # wide
         return _text(_records(rng, n, lens)).encode(), True
     if name == "bases":                   # lowercase, N, IUPAC
         lens = rng.integers(1, MAX_LEN + 1, n)
@@ -89,6 +101,11 @@ def _case(name):
         return _text(_records(rng, n, equal)).encode()[:-1], True
     if name == "blank_lines":             # blank lines between records
         return _text(_records(rng, n, equal), sep="\n").encode(), False
+    if name == "blank_ragged":            # the line parser's buckets
+        lens = rng.integers(0, MAX_LEN + 6, n)
+        lens[BATCH:2 * BATCH] = np.minimum(lens[BATCH:2 * BATCH], MAX_LEN)
+        lens[[5, BATCH + 3]] = LONG_READ_LEN + 1
+        return _text(_records(rng, n, lens), sep="\n").encode(), False
     if name == "trailing_blank":
         return _text(_records(rng, n, equal)).encode() + b"\n \n", False
     if name == "non_ascii":               # UTF-8 in a name and a comment
@@ -108,10 +125,10 @@ def _case(name):
     raise KeyError(name)
 
 
-CASES = ["equal", "nearly_equal", "ragged", "all_too_long", "bases", "crlf",
-         "edge_space", "comments", "no_final_newline", "blank_lines",
-         "trailing_blank", "non_ascii", "str_only_space", "lead_space",
-         "empty"]
+CASES = ["equal", "nearly_equal", "ragged", "all_too_long", "past_long",
+         "bases", "crlf", "edge_space", "comments", "no_final_newline",
+         "blank_lines", "blank_ragged", "trailing_blank", "non_ascii",
+         "str_only_space", "lead_space", "empty"]
 
 
 def _write(tmp_path, data, gz):
@@ -135,13 +152,27 @@ def _same(got, want):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.codes.dtype == w.codes.dtype == np.uint8
-        assert g.codes.shape == w.codes.shape == (BATCH, MAX_LEN)
+        assert g.codes.shape == w.codes.shape
+        assert w.codes.shape in ((BATCH, MAX_LEN), (BATCH, LONG_READ_LEN))
         np.testing.assert_array_equal(g.codes, w.codes)
         assert g.lens.dtype == w.lens.dtype == np.int32
         np.testing.assert_array_equal(g.lens, w.lens)
         assert g.names == w.names
         assert g.seqs == w.seqs
         assert g.quals == w.quals
+
+
+def _bucketed_reference(path):
+    """The JAX package's batches of `path`, each at its bucket: the batch
+    read at ``LONG_READ_LEN`` where a read of it is longer than
+    ``MAX_LEN`` and no longer than ``LONG_READ_LEN``, else at ``MAX_LEN``;
+    and the warnings of the read at ``LONG_READ_LEN``, the longest read the
+    port takes."""
+    narrow, _ = _run(reference_batches(path, BATCH, MAX_LEN))
+    wide, wide_err = _run(reference_batches(path, BATCH, LONG_READ_LEN))
+    assert len(narrow) == len(wide)
+    return [w if (w.lens > MAX_LEN).any() else b
+            for b, w in zip(narrow, wide)], wide_err
 
 
 @pytest.mark.parametrize("read_size", [1, 7, fastq.READ_SIZE],
@@ -156,7 +187,7 @@ def test_block_parser_equals_line_parser(tmp_path, monkeypatch, case, gz,
     monkeypatch.setattr(fastq, "READ_SIZE", read_size)
     timers = PhaseTimers()
     got, got_err = _run(stream_batches(path, BATCH, MAX_LEN, timers=timers))
-    want, want_err = _run(reference_batches(path, BATCH, MAX_LEN))
+    want, want_err = _bucketed_reference(path)
     _same(got, want)
     assert got_err == want_err
     fell_back = timers.counters["fastq.fallback_batches"]

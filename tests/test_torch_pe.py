@@ -48,6 +48,10 @@ def test_golden_pe_sam_byte_for_byte(golden, layout):
 
 @pytest.fixture(scope="module")
 def repeat_setup():
+    return repeat_inputs()
+
+
+def repeat_inputs():
     """tests/test_pe_flat.py's repeat genome and pairs, plus a 40 kb
     unique contig with 64 pairs: they give pestat its insert-size model
     (the repeat pairs alone are too ambiguous for it), and in 32 of them

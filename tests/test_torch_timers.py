@@ -14,6 +14,11 @@ drivers enter it.
   ``pair.rescue_jobs`` against ``pair.matesw_gen``'s jobs.
 * A tracer with phases only in the Aligner's place; the SAM text with and
   without a profiler recording.
+* The width-bucket counters, each on a run built to trigger it and 0 on
+  150-bp reads: ``fastq.wide_batches`` against the batches holding a read
+  of 161-256 bp (SE; PE where only read 2 is long), ``seed.overflow_reads``
+  against the Aligner's ``n_overflow`` under small seeding capacities,
+  ``pair.rescue_truncated`` against the rescue jobs longer than the pads.
 """
 import io
 import json
@@ -330,3 +335,93 @@ def test_the_sam_text_is_the_same_under_a_profiler(tiny, mode):
             "tpubwa.WRITE"} <= names
     assert ("tpubwa.DEDUP" in names) == (mode == "pe")
     assert ("tpubwa.REGS" in names) == (mode == "pe")
+
+
+# ------------------------------------------------- the bucket counters --
+
+def _long_fastqs(d, codes, contigs, long_at: dict) -> list:
+    """SE reads (or pairs) of 150 bp in batches of BATCH, with one read of
+    200 bp in each batch named in `long_at` ({end: [batch, ...]})."""
+    from tpubwa_torch.utils import sim
+    from tpubwa_torch.utils.dna import decode
+
+    n = 3 * BATCH
+    ends = max(long_at) + 1
+    if ends == 1:
+        reads = [sim.simulate_reads(codes, contigs, n, length=150, seed=5)]
+    else:
+        reads = list(sim.simulate_pairs(codes, contigs, n, length=150,
+                                        seed=6))
+    paths = []
+    for e, rs in enumerate(reads):
+        for k in long_at.get(e, []):
+            i = k * BATCH + 3
+            rs[i] = (rs[i][0], decode(codes[500 + 97 * k:700 + 97 * k]),
+                     "I" * 200)
+        paths.append(str(d / f"long_{ends}_{e}.fq"))
+        sim.write_fastq(paths[-1], rs)
+    return paths
+
+
+@pytest.mark.parametrize("case", ["se", "pe_read2", "short_se", "short_pe"])
+def test_wide_batches_count_the_batches_with_a_long_read(tiny, tmp_path,
+                                                         case):
+    from tpubwa_torch.io.fasta import Contig
+
+    _, idx, *_ = tiny
+    codes = idx.fetch_ref(0, idx.l_pac)
+    contigs = [Contig("c1", GENOME, 0)]
+    long_at, want = {"se": ({0: [0, 2]}, 2), "pe_read2": ({0: [], 1: [1]}, 1),
+                     "short_se": ({0: []}, 0),
+                     "short_pe": ({0: [], 1: []}, 0)}[case]
+    paths = _long_fastqs(tmp_path, codes, contigs, long_at)
+    t = PhaseTimers()
+    text = _drive(_aligner(idx, t), *paths)
+    assert t.counters["fastq.wide_batches"] == want
+    assert sum(1 for ln in text.splitlines() if not ln.startswith("@")) \
+        >= 3 * BATCH * len(paths)
+    for name in ("seed.overflow_reads", "pair.rescue_truncated"):
+        assert t.counters[name] == 0
+
+
+def test_overflow_reads_count_the_reads_cut_to_their_capacity(tiny):
+    """Seed lists capped at 3 a read: every read with more seeds counts,
+    as many as the Aligner's ``n_overflow``; the default capacities cut
+    none of the same 120-bp reads."""
+    _, idx, fq, *_ = tiny
+    counts = []
+    for cap in (3, None):
+        t = PhaseTimers()
+        al = _aligner(idx, t)
+        if cap:
+            al.opt.max_seeds_per_read = cap
+        _drive(al, fq)
+        counts.append((t.counters["seed.overflow_reads"], al.n_overflow))
+    assert counts[0][0] == counts[0][1] > 10
+    assert counts[1] == (0, 0)
+
+
+def test_rescue_truncated_counts_the_jobs_longer_than_the_pads():
+    """Rescue jobs whose query or target is longer than the pads count
+    once each, at the narrow and at the wide pads."""
+    from tpubwa_torch.align.pair import SWJob, run_matesw_rounds
+    from tpubwa_torch.config import NARROW, WIDE, MemOptions
+
+    opt = MemOptions()
+    rng = np.random.default_rng(2)
+
+    def gen(q, t):
+        yield SWJob(rng.integers(0, 4, q).astype(np.uint8),
+                    rng.integers(0, 4, t).astype(np.uint8), 19, 1 << 30)
+        return 1
+
+    shapes = [(100, 900), (100, 1500), (200, 900), (250, 2000)]
+    for widths, want in ((NARROW, 3), (WIDE, 0)):
+        t = PhaseTimers()
+        n = run_matesw_rounds(opt, [gen(*s) for s in shapes],
+                              torch.as_tensor(opt.score_matrix()),
+                              q_pad=widths.rescue_q, t_pad=widths.rescue_t,
+                              timers=t)
+        assert n == len(shapes)
+        assert t.counters["pair.rescue_truncated"] == want
+

@@ -16,9 +16,9 @@ import ctypes
 import numpy as np
 
 from tpubwa_torch.align.region import AlnReg
-from tpubwa_torch.config import MemOptions
+from tpubwa_torch.config import MemOptions, batch_widths
 from tpubwa_torch.native import load_native
-from tpubwa_torch.ops.extend_flat import (Q_PAD, T_PAD, extend_jobs,
+from tpubwa_torch.ops.extend_flat import (T_PAD, extend_jobs,
                                           extend_jobs_left,
                                           extend_jobs_right)
 from tpubwa_torch.utils.timers import count
@@ -88,11 +88,14 @@ def prepare_jobs(opt: MemOptions, l_pac: int, contig_offsets: np.ndarray,
     return handle, jobs, int(counts[0])
 
 
-def _ext_kw(aligner) -> dict:
+def _ext_kw(aligner, codes_on: dict) -> dict:
+    """The extension programs' settings; the query window is the
+    bucket's of the batch in `codes_on`."""
     opt = aligner.opt
+    width = next(iter(codes_on.values()))[0].shape[1]
     return dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
                 e_ins=opt.e_ins, zdrop=opt.zdrop, mat_max=opt.a, w0=opt.w,
-                core=aligner.ext_core)
+                q_pad=batch_widths(opt, width).ext_q, core=aligner.ext_core)
 
 
 def _on_mesh(aligner, codes_on: dict, n: int, fn) -> list:
@@ -134,16 +137,17 @@ def run_waves(aligner, codes_dev, lens_dev, jobs: dict, n_jobs: int,
 
     opt = aligner.opt
     w0 = opt.w
+    kw = _ext_kw(aligner, codes_on)
+    q_pad = kw["q_pad"]
     jb = {k: v[:n_jobs] for k, v in jobs.items()}
     qb = jb["qbeg"].astype(np.int64)
     sl = jb["slen"].astype(np.int64)
     d_l = np.minimum(jb["rbeg"] - jb["rmax0"], T_PAD)
     d_r = np.minimum(jb["rmax1"] - jb["rbeg"] - sl, T_PAD)
-    q_l = np.minimum(qb, Q_PAD)
-    q_r = np.minimum(np.asarray(lens_host)[jb["read"]] - qb - sl, Q_PAD)
+    q_l = np.minimum(qb, q_pad)
+    q_r = np.minimum(np.asarray(lens_host)[jb["read"]] - qb - sl, q_pad)
     ord_l = np.argsort(np.minimum(d_l, q_l + w0 + 1), kind="stable")
     ord_r = np.argsort(np.minimum(d_r, q_r + w0 + 1), kind="stable")
-    kw = _ext_kw(aligner)
 
     def waves_of(order, fields, fn):
         """fn over waves of the permuted job list -> [(rows, [k, take])]"""
@@ -184,7 +188,7 @@ def _run_waves_fused(aligner, codes_on: dict, jobs: dict,
     """Whole-seed extension (both halves in one program) per wave, for
     short job lists."""
     opt = aligner.opt
-    kw = _ext_kw(aligner)
+    kw = _ext_kw(aligner, codes_on)
     out = np.empty((max(n_jobs, 1), 14), np.int32)
     for j0 in range(0, n_jobs, MAX_WAVE):
         wave = {k: jobs[k][j0:min(j0 + MAX_WAVE, n_jobs)]

@@ -31,7 +31,7 @@ import torch
 
 from tpubwa_torch.align import finalize
 from tpubwa_torch.align.region import AlnReg
-from tpubwa_torch.config import MemOptions
+from tpubwa_torch.config import NARROW, MemOptions, Widths, batch_widths
 from tpubwa_torch.native import load_native
 from tpubwa_torch.ops import global_align_cuda
 from tpubwa_torch.ops.fm import DeviceIndex, ref_window_right
@@ -40,8 +40,10 @@ from tpubwa_torch.ops.global_align import (cigar_nm_md,
 from tpubwa_torch.utils.rounds import drive_rounds
 from tpubwa_torch.utils.timers import count
 
-QPAD = 192     # query window pad (== GA bucket Q)
-TWIN = 256     # reference window pad (== GA bucket T)
+# the narrow bucket's window pads; a batch runs at its bucket's
+# (``config.Widths`` sam_q, sam_t)
+QPAD = NARROW.sam_q     # query window pad (== GA bucket Q)
+TWIN = NARROW.sam_t     # reference window pad (== GA bucket T)
 MD_CHARS = "ACGTN"
 CIGAR_OPS = "MIDSH"
 
@@ -207,12 +209,15 @@ def mapq_se_vec(opt: MemOptions, lq, rlen, score, frac, sub, csub,
     return np.where(sub_e >= score, 0, mapq)
 
 
-def flat_core(aligner, codes_dev, rd, L, rb, re, qb, qe, truesc, aw):
+def flat_core(aligner, codes_dev, rd, L, rb, re, qb, qe, truesc, aw,
+              widths: Widths):
     """The shared flat-record pipeline for N selected single regions:
     device windows -> band-doubling GA retry -> columnar cigars ->
     edge-deletion squeeze -> NM/MD inputs.
 
     rd indexes rows of codes_dev; all other inputs are int64 [N] columns.
+    The windows are the batch's bucket's (`widths`: ``sam_q`` x
+    ``sam_t``), which every lane's geometry fits (``flat_geom``).
     Returns a dict of emission columns; ``ok`` is False for lanes whose
     cigar overflowed the GA_K pack (callers re-render those via the
     generator path)."""
@@ -239,7 +244,7 @@ def flat_core(aligner, codes_dev, rd, L, rb, re, qb, qe, truesc, aw):
         aligner.di, codes_dev, put(rd.astype(np.int64)),
         put(qb.astype(np.int32)), put(lq.astype(np.int32)),
         put(rb.astype(np.int64)), put(rlen.astype(np.int32)), put(rev),
-        q_pad=QPAD, t_win=TWIN, a=opt.a, b=opt.b)
+        q_pad=widths.sam_q, t_win=widths.sam_t, a=opt.a, b=opt.b)
 
     def run_ga(rows, w_cap):
         """One _ga_rows round for lanes `rows` (band cap w_cap)."""
@@ -499,9 +504,8 @@ def _emit_native(aligner, names, seqs, quals, other, core, rec
         return a.ctypes.data_as(pt)
 
     qh, th = core["qh"], core["th"]
-    if qh is None:
-        qh = np.zeros((1, QPAD), np.int8)
-        th = np.zeros((1, TWIN), np.int8)
+    if qh is None:   # no lane reads a window row
+        qh = th = np.zeros((1, 1), np.int8)
     cap = (len(other_buf) + len(name_buf) + 2 * len(seq_buf)
            + len(qual_buf) + NR * 160 + NL * 48 + 4096)
     outb = np.empty(cap, np.uint8)
@@ -526,7 +530,7 @@ def _emit_native(aligner, names, seqs, quals, other, core, rec
         A(core["lq"], np.int32, i32p), A(core["rlen"], np.int32, i32p),
         A(core["win_row"], np.int32, i32p),
         A(qh, np.int8, i8p), A(th, np.int8, i8p),
-        c.c_int64(QPAD), c.c_int64(TWIN),
+        c.c_int64(qh.shape[1]), c.c_int64(th.shape[1]),
         c.c_int64(NR),
         A(rec["b"], np.int32, i32p), A(rec["lane"], np.int32, i32p),
         A(rec["flag"], np.int32, i32p), A(rec["mapq"], np.int32, i32p),
@@ -562,8 +566,16 @@ def hash64_vec(key: np.ndarray) -> np.ndarray:
     return k
 
 
+def flat_geom(lq, rlen, rb, re, l_pac: int, widths: Widths):
+    """Lanes whose region fits the flat tier's windows (``widths``) and
+    does not straddle the forward/reverse boundary."""
+    return ((lq > 0) & (rlen > 0) & (lq <= widths.sam_q)
+            & (rlen <= widths.sam_t) & ~((rb < l_pac) & (l_pac < re)))
+
+
 def classify_multi(opt: MemOptions, fields: dict, bounds: np.ndarray,
-                   rows: np.ndarray, read_id0: int, l_pac: int):
+                   rows: np.ndarray, read_id0: int, l_pac: int,
+                   widths: Widths):
     """Columnar sort_dedup + mark_primary for reads with >= 2 regions —
     the single-primary fast case (every non-primary region shadowed by
     the primary: bwa's z-list stays [0]).
@@ -666,8 +678,7 @@ def classify_multi(opt: MemOptions, fields: dict, bounds: np.ndarray,
     # --- flat geometry for every lane this path would emit ---
     lq3 = qe3 - qb3
     rl3 = re3 - rb3
-    geom = ((lq3 > 0) & (rl3 > 0) & (lq3 <= QPAD) & (rl3 <= TWIN)
-            & ~((rb3 < l_pac) & (l_pac < re3)))
+    geom = flat_geom(lq3, rl3, rb3, re3, l_pac, widths)
     need = firstk | xa_use
     badgeom = need & ~geom
     bad[gk[badgeom]] = True
@@ -690,7 +701,8 @@ def se_text_batch(aligner, batch, read_id0: int, fields: dict,
                   bounds: np.ndarray, codes_dev=None) -> str:
     """SAM text for a ReadBatch from flat region arrays (fields/bounds as
     returned by flatext.finalize_fields).  codes_dev: the device-resident
-    read batch from seeding (re-uploaded if absent).
+    read batch from seeding (re-uploaded if absent).  The flat tiers run
+    at the batch's bucket (``config.batch_widths`` of its width).
 
     Three tiers: single-region reads (columnar), multi-region reads in
     the single-primary fast case (columnar, with XS/XA from the same
@@ -701,6 +713,7 @@ def se_text_batch(aligner, batch, read_id0: int, fields: dict,
     idx = aligner.idx
     l_pac = idx.l_pac
     B = batch.n
+    widths = batch_widths(opt, batch.codes.shape[1])
     lens = np.asarray(batch.lens[:B], dtype=np.int64)
     cnt = np.diff(bounds)
     j0 = bounds[:-1]
@@ -716,9 +729,7 @@ def se_text_batch(aligner, batch, read_id0: int, fields: dict,
         j = j0[s_rows]
         rb_, re_, qb_, qe_ = (fields["rb"][j], fields["re"][j],
                               fields["qb"][j], fields["qe"][j])
-        lq_, rlen_ = qe_ - qb_, re_ - rb_
-        ok = ((lq_ > 0) & (rlen_ > 0) & (lq_ <= QPAD) & (rlen_ <= TWIN)
-              & ~((rb_ < l_pac) & (l_pac < re_)))
+        ok = flat_geom(qe_ - qb_, re_ - rb_, rb_, re_, l_pac, widths)
         flat_rows = s_rows[ok]
     else:
         flat_rows = s_rows
@@ -729,7 +740,7 @@ def se_text_batch(aligner, batch, read_id0: int, fields: dict,
     m_rec = np.array([], np.int64)     # reads emitting a flat record
     if multi_rows.size:
         mres = classify_multi(opt, fields, bounds, multi_rows, read_id0,
-                              l_pac)
+                              l_pac, widths)
         m_unmap = multi_rows[mres["good"] & mres["unmap"]]
         m_rec = multi_rows[mres["good"] & ~mres["unmap"]]
         m_bad = multi_rows[~mres["good"]]
@@ -780,7 +791,7 @@ def se_text_batch(aligner, batch, read_id0: int, fields: dict,
         truesc = fields["truesc"][j_lanes].astype(np.int64)
         aw = fields["w"][j_lanes].astype(np.int64)
         core = flat_core(aligner, codes_dev, b_lanes, lens[b_lanes], rb,
-                         re, qb, qe, truesc, aw)
+                         re, qb, qe, truesc, aw, widths)
 
         # GA cigar-pack overflow: fail the whole READ to the generators
         okl = core["ok"]

@@ -25,7 +25,7 @@ import torch
 
 from tpubwa_torch.align import finalize, flatsam
 from tpubwa_torch.align.region import AlnReg
-from tpubwa_torch.config import MemOptions
+from tpubwa_torch.config import NARROW, MemOptions, batch_widths
 from tpubwa_torch.index.fmindex import FMIndex
 from tpubwa_torch.io import sam as samio
 from tpubwa_torch.ops.localsw_cuda import localsw_core
@@ -281,11 +281,14 @@ def matesw_gen(opt: MemOptions, idx: FMIndex, pes: list[PEStat],
 
 
 def run_matesw_rounds(opt: MemOptions, gens: list, mat: torch.Tensor,
-                      q_pad: int = 192, t_pad: int = 1024) -> int:
+                      q_pad: int = NARROW.rescue_q,
+                      t_pad: int = NARROW.rescue_t, timers=None) -> int:
     """Drive rescue generators in lockstep batched rounds on the device
     of `mat` (the [5, 5] scoring matrix as a tensor).  Queries are cut
-    to q_pad and targets to t_pad codes: the truncation is part of the
-    output.  Each round uploads one buffer and downloads one [4, B]
+    to q_pad and targets to t_pad codes (the batch's bucket's
+    ``rescue_q``, ``rescue_t``): the truncation is part of the output,
+    and each job it cuts counts one ``pair.rescue_truncated`` in
+    `timers`.  Each round uploads one buffer and downloads one [4, B]
     result.  Returns the number of rescue SWs performed."""
     n_gen = len(gens)
     pending: list[SWJob | None] = [None] * n_gen
@@ -304,13 +307,17 @@ def run_matesw_rounds(opt: MemOptions, gens: list, mat: torch.Tensor,
         t_b = 256 if t_max <= 256 else t_pad
         # one host buffer: query | target | qlen tlen minsc endsc
         buf = np.full((B, q_pad + t_b + 4), 4, np.int32)
+        cut = 0
         for r, i in enumerate(idxs):
             job = pending[i]
             nq = min(len(job.query), q_pad)
             nt = min(len(job.target), t_b)
+            cut += nq < len(job.query) or nt < len(job.target)
             buf[r, :nq] = job.query[:nq]
             buf[r, q_pad:q_pad + nt] = job.target[:nt]
             buf[r, q_pad + t_b:] = (nq, nt, job.minsc, job.endsc)
+        if cut:
+            count(timers, "pair.rescue_truncated", cut)
         dev_buf = torch.as_tensor(buf, device=mat.device)
         cols = dev_buf[:, q_pad + t_b:].T
         res = localsw_core(
@@ -461,9 +468,18 @@ def align_pe_batch(aligner, b1, b2, pair_id0: int, handles=None) -> str:
 
     ``handles``: optionally pre-dispatched seeding handles for (b1, b2)
     (the pipelined PE driver dispatches batch N+1's seeding before batch
-    N's host phases run, mirroring the SE dispatch-ahead driver)."""
+    N's host phases run, mirroring the SE dispatch-ahead driver).  The
+    two ends run at one width bucket, the wider end's (``same_width``;
+    the driver pads them before dispatch)."""
     opt = aligner.opt
     idx = aligner.idx
+    if b1.codes.shape[1] != b2.codes.shape[1]:
+        if handles is not None:
+            raise ValueError("the two ends of a paired batch differ in "
+                             "width: pad them with same_width before "
+                             "dispatching their seeding")
+        b1, b2 = same_width(b1, b2)
+    wd = batch_widths(opt, b1.codes.shape[1])
     # dispatch BOTH ends' device seeding before finishing either: end 2's
     # SMEM/expand compute and async seed-row downloads overlap end 1's
     # blocking d2h + host chaining + extension waves (measured: PE SAL was
@@ -506,7 +522,9 @@ def align_pe_batch(aligner, b1, b2, pair_id0: int, handles=None) -> str:
                                            regs_m))
         count(aligner.timers, "pair.rescue_jobs", len(gens))
         if gens:
-            run_matesw_rounds(opt, gens, aligner.mat_dev)
+            run_matesw_rounds(opt, gens, aligner.mat_dev,
+                              q_pad=wd.rescue_q, t_pad=wd.rescue_t,
+                              timers=aligner.timers)
     with aligner.timers.phase("SAM"):
         return pe_sam_text(aligner, b1, b2, pair_id0, pairs, pes,
                            codes_dev1, codes_dev2)
@@ -553,6 +571,7 @@ def pe_sam_text(aligner, b1, b2, pair_id0: int, pairs, pes,
     opt, idx = aligner.opt, aligner.idx
     l_pac = idx.l_pac
     B = b1.n
+    wd = batch_widths(opt, b1.codes.shape[1])   # both ends' (same_width)
     marked = []
     for i, (r0, r1) in enumerate(pairs):
         pid = pair_id0 + i
@@ -562,7 +581,7 @@ def pe_sam_text(aligner, b1, b2, pair_id0: int, pairs, pes,
 
     def geom(e):
         lq, rl = e.qe - e.qb, e.re - e.rb
-        return (0 < lq <= flatsam.QPAD and 0 < rl <= flatsam.TWIN
+        return (0 < lq <= wd.sam_q and 0 < rl <= wd.sam_t
                 and not (e.rb < l_pac < e.re))
 
     # ---- per-pair flat eligibility + pair scoring + lane selection ----
@@ -647,7 +666,7 @@ def pe_sam_text(aligner, b1, b2, pair_id0: int, pairs, pes,
                              if alt is not None else cc[f])
             return flatsam.flat_core(
                 aligner, codes_dev, rd, L, cat("rb"), cat("re"),
-                cat("qb"), cat("qe"), cat("truesc"), cat("aw"))
+                cat("qb"), cat("qe"), cat("truesc"), cat("aw"), wd)
 
         core0 = run_core(codes_dev1, b1.lens, c0, alt0, A0)
         core1 = run_core(codes_dev2, b2.lens, c1, alt1, A1)
@@ -801,6 +820,13 @@ def pe_sam_text(aligner, b1, b2, pair_id0: int, pairs, pes,
                              rec)
 
 
+def same_width(b1, b2) -> tuple:
+    """The two ends of a paired batch padded to one width, the wider
+    end's: a pair runs at one bucket."""
+    w = max(b1.codes.shape[1], b2.codes.shape[1])
+    return b1.padded_to(w), b2.padded_to(w)
+
+
 class PairedCountMismatch(Exception):
     """The two FASTQ files of a pair differ in read count."""
 
@@ -814,9 +840,12 @@ def align_pe_fastq(aligner, fq1: str, fq2: str, out, workers: int = 1,
     is 1: batch N+1's seeding of both ends is dispatched before batch N's
     host pairing, rescue and SAM run; ``pipeline.run_ordered_pool``
     otherwise), with their ``chunk_dir`` resume and ``shard`` filter.
-    FASTQs of unequal length write every complete batch, then return 1."""
+    A pair of batches either of which holds a read of 161-256 bp runs in
+    the wide bucket, both ends padded to it (``fastq.wide_batches``
+    counts the pair once).  FASTQs of unequal length write every complete
+    batch, then return 1."""
     from tpubwa_torch.io.fastq import stream_batches
-    from tpubwa_torch.align.pipeline import (run_dispatch_ahead,
+    from tpubwa_torch.align.pipeline import (count_wide, run_dispatch_ahead,
                                              run_ordered_pool)
 
     opt = aligner.opt
@@ -835,6 +864,8 @@ def align_pe_fastq(aligner, fq1: str, fq2: str, out, workers: int = 1,
             if b1 is None or b2 is None or b1.n != b2.n:
                 raise PairedCountMismatch(
                     "paired FASTQ files differ in read count")
+            b1, b2 = same_width(b1, b2)
+            count_wide(aligner, b1)
             yield (b1, b2, pair_id0), 2 * b1.n
             pair_id0 += b1.n
 

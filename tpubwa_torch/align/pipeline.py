@@ -30,7 +30,7 @@ from tpubwa_torch.align import finalize, flatext, flatsam
 from tpubwa_torch.align.chain import chain_filter_batch_native
 from tpubwa_torch.align.cigar_batch import GABatchExecutor
 from tpubwa_torch.align.region import extend_read, run_extension_rounds
-from tpubwa_torch.config import MemOptions
+from tpubwa_torch.config import WIDE, MemOptions, batch_widths
 from tpubwa_torch.index.fmindex import FMIndex
 from tpubwa_torch.io.fastq import stream_batches
 from tpubwa_torch.io.sam import sam_header
@@ -45,7 +45,7 @@ from tpubwa_torch.ops.seeds import seed_rows_mesh
 from tpubwa_torch.ops.smem_chain import collect_smems_mesh
 from tpubwa_torch.parallel.mesh import make_mesh, resolve_device  # noqa: F401
 from tpubwa_torch.utils.rounds import drive_rounds
-from tpubwa_torch.utils.timers import PhaseTimers
+from tpubwa_torch.utils.timers import PhaseTimers, count
 
 
 # the extension kernel per layout: "t" is K1 (a group of lanes per job,
@@ -177,13 +177,18 @@ class Aligner:
     def seed_batch_dispatch(self, codes: np.ndarray,
                             lens: np.ndarray) -> SeedHandle:
         """Run device seeding (SMEMs + seed rows) for a read batch; returns
-        a handle for seed_batch_finish.  On a mesh every shard's work is
-        issued before anything is read back but the round-2 candidate
-        counts; a shard without reads launches nothing."""
+        a handle for seed_batch_finish.  The SMEM and seed capacities a
+        read are the options' times the batch's bucket's ``seed_scale``,
+        the batch's seed rows its ``seed_rows`` a read
+        (``config.batch_widths`` of the codes' width).  On a mesh every
+        shard's work is issued before anything is read back but the
+        round-2 candidate counts; a shard without reads launches
+        nothing."""
         opt = self.opt
         with self.timers.phase("SMEM"):
             codes32 = np.asarray(codes, np.int32)
             lens32 = np.asarray(lens, np.int32)
+            wd = batch_widths(opt, codes32.shape[1])
             codes_on = {dev: (self._put(codes32, dev), self._put(lens32, dev))
                         for dev in self.mesh.distinct}
             # the reads before the batch's padding (rows of length 0 at
@@ -201,10 +206,11 @@ class Aligner:
                 [codes_on[dev][1][lo:hi] for dev, lo, hi in shards],
                 min_seed_len=opt.min_seed_len, split_len=opt.split_len,
                 split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
-                out_cap=opt.max_smems_per_read)
+                out_cap=opt.max_smems_per_read * wd.seed_scale)
             seeds = seed_rows_mesh(
                 [di for di, _ in idxs], sms, max_occ=opt.max_occ,
-                per_read_cap=opt.max_seeds_per_read,
+                per_read_cap=opt.max_seeds_per_read * wd.seed_scale,
+                rows_per_read=wd.seed_rows,
                 sss=[ss for _, ss in idxs], sa_shift=opt.sa_sample_shift,
                 ssa=self.ssa)
         return SeedHandle(seeds, [sm.overflow for sm in sms],
@@ -214,7 +220,9 @@ class Aligner:
     def seed_batch_finish(self, handle: SeedHandle):
         """Download a seeding handle's results: (seed_rows [n, 4] =
         (read_id, rbeg, qbeg, len), l_rep [B]), the shards' rows merged
-        in shard order with read ids of the batch."""
+        in shard order with read ids of the batch.  Reads whose SMEM or
+        seed list was cut to its capacity count in ``seed.overflow_reads``
+        (and ``n_overflow``), with a warning."""
         with self.timers.phase("SAL"):
             ns = [int(cs.n) for cs in handle.seeds]
             l_rep = np.concatenate(
@@ -225,6 +233,7 @@ class Aligner:
             if n_ovf:
                 with self._ovf_lock:
                     self.n_overflow += n_ovf
+                count(self.timers, "seed.overflow_reads", n_ovf)
                 print(f"[tpu-bwa-torch] warning: {n_ovf} read(s) exceeded "
                       "SMEM/seed buffer caps; their seed lists were "
                       "truncated", file=sys.stderr)
@@ -266,8 +275,9 @@ class Aligner:
                             chains_per_read: list) -> list:
         """Extend each read's chains (``align.region.extend_read``) in
         lockstep rounds on the Aligner's devices, with its layout's
-        extension kernel; returns list[list[AlnReg]].  On a mesh each
-        round's lanes are split into contiguous parts, one a device."""
+        extension kernel and the query window of the batch's bucket;
+        returns list[list[AlnReg]].  On a mesh each round's lanes are
+        split into contiguous parts, one a device."""
         opt = self.opt
         kw = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
                   e_ins=opt.e_ins, zdrop=opt.zdrop, mat_max=opt.a)
@@ -295,7 +305,9 @@ class Aligner:
                                 int(lens[b]), codes[b, : lens[b]],
                                 chains_per_read[b])
                     for b in range(len(chains_per_read))]
-            return run_extension_rounds(gens, opt, extend_round)
+            return run_extension_rounds(
+                gens, opt, extend_round,
+                q_pad=batch_widths(opt, np.shape(codes)[1]).ext_q)
 
     # ------------------------------------------ flat extension path ----
 
@@ -705,6 +717,13 @@ def run_dispatch_ahead(items, dispatch, work, out,
     return n_done
 
 
+def count_wide(aligner: Aligner, batch) -> None:
+    """Count `batch` in ``fastq.wide_batches`` where it runs in the wide
+    bucket."""
+    if batch_widths(aligner.opt, batch.codes.shape[1]) is WIDE:
+        count(aligner.timers, "fastq.wide_batches")
+
+
 def run_se_pipeline(aligner: Aligner, fq1: str, out, workers: int = 1,
                     chunk_dir: str | None = None,
                     manifest: dict | None = None,
@@ -714,13 +733,15 @@ def run_se_pipeline(aligner: Aligner, fq1: str, out, workers: int = 1,
     round-2 candidate count on the host, so rounds 1 and 2 complete
     before it returns; only round 3 and the seed rows overlap batch N).
     ``workers > 1`` runs the ordered thread pool, each worker aligning
-    whole batches.  Returns the reads done."""
+    whole batches.  A batch holding a read of 161-256 bp is read in the
+    wide bucket (``fastq.wide_batches``).  Returns the reads done."""
     opt = aligner.opt
 
     def items():
         read_id0 = 0
         for batch in stream_batches(fq1, opt.batch_reads, opt.max_read_len,
                                     timers=aligner.timers):
+            count_wide(aligner, batch)
             yield (batch, read_id0), batch.n
             read_id0 += batch.n
 

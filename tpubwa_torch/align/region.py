@@ -223,8 +223,9 @@ def run_extension_rounds(gens: list[Iterator[SeedExtJob]], opt: MemOptions,
 
     A round has as many lanes as reads still live (no padding to a bucket
     size: it pads only, so nothing depends on it).  Windows are cut to
-    ``q_pad`` query and ``t_pad`` target bases (the truncation is part of
-    the output); a round whose targets all fit 256 is 256 wide, else
+    ``q_pad`` query (the batch's bucket's ``ext_q``, which holds its
+    reads) and ``t_pad`` target bases (the truncation is part of the
+    output); a round whose targets all fit 256 is 256 wide, else
     ``t_pad``.  ``extend_round`` receives the round's host arrays (``q_l,
     qlen_l, t_l, tlen_l, q_r, qlen_r, t_r, tlen_r, w0, h0, pen5, pen3``,
     int32, one row a lane) and returns int32 [14, lanes] on the host (one

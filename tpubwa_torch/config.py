@@ -13,6 +13,38 @@ import math
 import numpy as np
 
 
+@dataclasses.dataclass(frozen=True)
+class Widths:
+    """The device widths a read batch runs at, chosen by its padded width
+    (``batch_widths``): a batch of reads no longer than
+    ``max_read_len`` takes the narrow bucket, a batch holding a longer one
+    (up to ``LONG_READ_LEN``, 2x250 Illumina) the wide one, every read of
+    it padded to ``LONG_READ_LEN`` (``batch_width``).  The widths cut
+    nothing that a read of the bucket needs: the extension's query
+    window holds the read, the SAM windows its record, the rescue target
+    bwa's window (insert range plus the read)."""
+
+    ext_q: int       # extension query window (ops/extend_flat.py Q_PAD)
+    sam_q: int       # flat SAM query window (align/flatsam.py QPAD)
+    sam_t: int       # flat SAM reference window (align/flatsam.py TWIN)
+    rescue_q: int    # mate-rescue query pad (align/pair.py)
+    rescue_t: int    # mate-rescue target pad
+    seed_scale: int  # seeding capacities: max_smems_per_read and
+    #                  max_seeds_per_read times this
+    seed_rows: int   # the batch's seed rows, a read on average
+    #                  (ops/seeds.py rows_per_read)
+
+
+# the longest read the port aligns: the wide bucket's padded width
+LONG_READ_LEN = 256
+NARROW = Widths(ext_q=192, sam_q=192, sam_t=256, rescue_q=192,
+                rescue_t=1024, seed_scale=1, seed_rows=32)
+# TWIN 256 + the band 100, rounded up; 2,048 holds bwa's rescue window
+# (about 1,200 at an insert of 550 +- 100) with room
+WIDE = Widths(ext_q=256, sam_q=256, sam_t=384, rescue_q=256, rescue_t=2048,
+              seed_scale=2, seed_rows=64)
+
+
 @dataclasses.dataclass
 class MemOptions:
     # scoring
@@ -128,3 +160,25 @@ class MemOptions:
         mat[:, 4] = -1
         object.__setattr__(self, "_scmat", (key, mat))
         return mat
+
+
+def batch_width(max_len: int, lens) -> int:
+    """The width a batch of reads `lens` bp long is padded to, the one
+    rule of the buckets: `max_len` (``MemOptions.max_read_len``, the
+    narrow bucket) where no read is longer, ``LONG_READ_LEN`` (the wide
+    bucket) where a read is longer and no longer than ``LONG_READ_LEN``.
+    A read past ``LONG_READ_LEN`` fits no bucket and widens nothing
+    (``io/fastq.py`` keeps it with length 0)."""
+    lens = np.asarray(lens)
+    wide = (lens > max_len) & (lens <= LONG_READ_LEN)
+    return LONG_READ_LEN if wide.any() else max_len
+
+
+def batch_widths(opt, width: int) -> Widths:
+    """The device widths of a read batch `width` wide under the options
+    `opt`: the bucket ``batch_width`` gives reads of that length."""
+    if width > max(opt.max_read_len, LONG_READ_LEN):
+        raise ValueError(f"a read batch {width} wide: the port aligns "
+                         f"reads of at most {LONG_READ_LEN} bp")
+    return NARROW if batch_width(opt.max_read_len, width) == \
+        opt.max_read_len else WIDE

@@ -16,6 +16,7 @@ from typing import Iterator
 
 import numpy as np
 
+from tpubwa_torch.config import LONG_READ_LEN, batch_width
 from tpubwa_torch.utils.dna import NT4_TABLE, encode
 from tpubwa_torch.utils.timers import count
 
@@ -43,6 +44,9 @@ class ReadBatch:
     codes: (B, L) uint8, 0..3 bases, 4 = ambiguous, padded with 4 past length
     lens:  (B,) int32 actual read lengths (0 for padding rows)
     names/seqs/quals: host-side metadata for SAM emission
+
+    L is the batch's width bucket (``config.batch_width``): the aligner
+    runs the batch at ``config.batch_widths`` of L (``config.Widths``).
     """
 
     codes: np.ndarray
@@ -54,6 +58,15 @@ class ReadBatch:
     @property
     def n(self) -> int:
         return len(self.names)
+
+    def padded_to(self, width: int) -> "ReadBatch":
+        """The batch with its rows padded to `width` (itself when that
+        is its width)."""
+        if width == self.codes.shape[1]:
+            return self
+        codes = np.full((self.codes.shape[0], width), 4, dtype=np.uint8)
+        codes[:, :self.codes.shape[1]] = self.codes
+        return dataclasses.replace(self, codes=codes)
 
 
 def _open(path: str):
@@ -91,28 +104,31 @@ def _records(f) -> Iterator[Read]:
 def batch_reads(reads: list[Read], batch_size: int, max_len: int,
                 pad_to_batch: bool = True, on_too_long: str = "raise"
                 ) -> Iterator[ReadBatch]:
-    """Group reads into fixed-shape batches.
+    """Group reads into fixed-shape batches, each as wide as its bucket
+    (``config.batch_width``): `max_len`, or ``LONG_READ_LEN`` where it
+    holds a read longer than `max_len`.
 
-    Reads longer than max_len don't fit the static device shape (long-read
-    support would use a different length bucket — SURVEY.md §5 "length
-    bucketing + dtype escalation").  on_too_long: "raise", or "skip" — keep
-    the read in the batch with length 0 so it is reported as unmapped
-    (with a stderr warning) instead of aborting the whole run.
+    Reads longer than both don't fit a device shape.  on_too_long:
+    "raise", or "skip" — keep the read in the batch with length 0 so it
+    is reported as unmapped (with a stderr warning) instead of aborting
+    the whole run.
     """
+    limit = max(max_len, LONG_READ_LEN)
     for i in range(0, len(reads), batch_size):
         chunk = reads[i : i + batch_size]
         b = batch_size if pad_to_batch else len(chunk)
-        codes = np.full((b, max_len), 4, dtype=np.uint8)
+        width = batch_width(max_len, [len(r.seq) for r in chunk])
+        codes = np.full((b, width), 4, dtype=np.uint8)
         lens = np.zeros(b, dtype=np.int32)
         for j, r in enumerate(chunk):
-            if len(r.seq) > max_len:
+            if len(r.seq) > width:
                 if on_too_long == "skip":
                     print(f"[tpu-bwa] warning: read {r.name} length "
-                          f"{len(r.seq)} > max read length {max_len}; "
+                          f"{len(r.seq)} > max read length {limit}; "
                           "emitting it unmapped", file=sys.stderr)
                     continue
                 raise ValueError(
-                    f"read {r.name} length {len(r.seq)} > max_len {max_len}")
+                    f"read {r.name} length {len(r.seq)} > max_len {limit}")
             codes[j, : len(r.seq)] = encode(r.seq)
             lens[j] = len(r.seq)
         yield ReadBatch(
@@ -142,8 +158,10 @@ def stream_batches(path: str, batch_size: int, max_len: int, timers=None
     record) is parsed by ``read_fastq``'s line parser and ``batch_reads``,
     which give the same batches and raise the same errors; each such batch
     counts one ``fastq.fallback_batches`` in `timers` (an Aligner's).
-    Reads longer than `max_len` stay in the batch with length 0 and a
-    warning (``batch_reads``' ``on_too_long="skip"``)."""
+    A batch is `max_len` wide, or ``LONG_READ_LEN`` wide where it holds a
+    read longer than `max_len` (``config.batch_width``).  Reads longer
+    than both stay in the batch with length 0 and a warning
+    (``batch_reads``' ``on_too_long="skip"``)."""
     with _open(path) as f:
         carry = b""
         while True:
@@ -185,9 +203,9 @@ def _newlines(b: bytes) -> int:
 def _parse_block(buf: bytes, batch_size: int, max_len: int
                  ) -> tuple[ReadBatch | None, bytes]:
     """The batch of the first ``4 * batch_size`` lines of `buf` (all of it
-    at the stream's end) and the bytes after them; (None, `buf`) where the
-    block is not four-line records of ASCII whose leads are ``@`` and
-    ``+``."""
+    at the stream's end) and the bytes after them, as wide as
+    ``batch_reads`` makes it; (None, `buf`) where the block is not
+    four-line records of ASCII whose leads are ``@`` and ``+``."""
     a = np.frombuffer(buf, dtype=np.uint8)
     ends = np.flatnonzero(a == 10)
     if len(ends) >= 4 * batch_size:
@@ -225,15 +243,16 @@ def _parse_block(buf: bytes, batch_size: int, max_len: int
     names = [h[1:].split(None, 1)[0] for h in heads]
     flat = np.frombuffer("".join(seqs).encode().translate(_NT4),
                          dtype=np.uint8)
-    long = lens > max_len
+    width = batch_width(max_len, lens)
+    long = lens > width
     if long.any():
         for i in np.flatnonzero(long):
             print(f"[tpu-bwa] warning: read {names[i]} length {lens[i]} > "
-                  f"max read length {max_len}; emitting it unmapped",
-                  file=sys.stderr)
+                  f"max read length {max(max_len, LONG_READ_LEN)}; "
+                  "emitting it unmapped", file=sys.stderr)
         flat = flat[np.repeat(~long, lens)]
         lens[long] = 0
-    codes = np.full((batch_size, max_len), 4, dtype=np.uint8)
+    codes = np.full((batch_size, width), 4, dtype=np.uint8)
     _place(codes, flat, lens)
     out_lens = np.zeros(batch_size, dtype=np.int32)
     out_lens[:n] = lens

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from tpubwa_torch.config import NARROW
 from tpubwa_torch.ops.extend import _extend_core, _with_retry
 from tpubwa_torch.ops.fm import (DeviceIndex, ref_window_left,
                                  ref_window_right)
@@ -19,8 +20,10 @@ from tpubwa_torch.ops.fm import (DeviceIndex, ref_window_left,
 I32 = torch.int32
 
 # (query, target) pad widths of the extension windows: the truncation they
-# impose is part of the output (the JAX package's round driver uses them)
-Q_PAD = 192
+# impose is part of the output (the JAX package's round driver uses them).
+# Q_PAD is the narrow bucket's; a wide batch's callers pass its q_pad
+# (config.WIDE.ext_q)
+Q_PAD = NARROW.ext_q
 T_PAD = 768
 
 

@@ -38,6 +38,7 @@ import math
 import numpy as np
 import torch
 
+from tpubwa_torch.config import NARROW, MemOptions, batch_widths
 from tpubwa_torch.ops.extend import extend_batch
 from tpubwa_torch.ops.fm import DeviceIndex, fetch_ref_batch
 from tpubwa_torch.ops.seeds import smems_to_seeds
@@ -191,7 +192,13 @@ def device_align_step(di: DeviceIndex, codes: torch.Tensor,
     ``step_windows``).
 
     Returns (rbeg, qbeg, len, valid) of the [B, 64] seed slots and the
-    extension score [B]."""
+    extension score [B].  Takes the narrow bucket's reads only (its 64
+    slots are sized for them): a wider batch raises."""
+    if batch_widths(MemOptions(), codes.shape[1]) is not NARROW:
+        raise ValueError(
+            f"device_align_step takes reads of at most "
+            f"{MemOptions.max_read_len} bp (a batch {codes.shape[1]} wide): "
+            "align a wide batch with Aligner")
     codes = codes.to(torch.int32)
     lens = lens.to(torch.int32)
     sm = collect_smems_chain_fused(di, codes, lens,

@@ -55,7 +55,7 @@ def h1_times(st: pstats.Stats) -> dict:
 def profile(ref_mb: float, device, top: int = 35,
             work: str = os.path.join(ROOT, ".bench")) -> tuple[dict, str]:
     """Returns (the record, the profiled batch's SAM text)."""
-    from tpubwa_torch.align.pair import align_pe_batch
+    from tpubwa_torch.align.pair import align_pe_batch, same_width
     from tpubwa_torch.align.pipeline import Aligner
     from tpubwa_torch.config import MemOptions
     from tpubwa_torch.index.fmindex import FMIndex
@@ -68,8 +68,9 @@ def profile(ref_mb: float, device, top: int = 35,
     fa, fq1, fq2 = ensure_fixture(ref_mb, N_READS, True, "chr21", work)
     opt = MemOptions(batch_reads=BATCH_READS)
     al = Aligner(FMIndex.load(fa), opt, device=dev)
-    b1 = next(stream_batches(fq1, opt.batch_reads, opt.max_read_len))
-    b2 = next(stream_batches(fq2, opt.batch_reads, opt.max_read_len))
+    b1, b2 = same_width(*(next(stream_batches(
+        fq, opt.batch_reads, opt.max_read_len))
+        for fq in (fq1, fq2)))
 
     handles = (al.seed_batch_dispatch(b1.codes, b1.lens),
                al.seed_batch_dispatch(b2.codes, b2.lens))

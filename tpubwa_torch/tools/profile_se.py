@@ -56,6 +56,7 @@ def profile(ref_mb: float, style: str, device,
     """Returns (the record, the batch's SAM text)."""
     from tpubwa_torch.align import flatext, flatsam
     from tpubwa_torch.align.pipeline import Aligner
+    from tpubwa_torch.config import batch_widths
     from tpubwa_torch.config import MemOptions
     from tpubwa_torch.index.fmindex import FMIndex
     from tpubwa_torch.io.fastq import stream_batches
@@ -74,6 +75,7 @@ def profile(ref_mb: float, style: str, device,
     al = Aligner(idx, opt, device=dev)
     it = stream_batches(fq, opt.batch_reads, opt.max_read_len)
     warm, batch = next(it), next(it)
+    wd = batch_widths(opt, batch.codes.shape[1])     # the batch's bucket
 
     t = time.monotonic()
     al.align_se_text(warm, 0)
@@ -98,7 +100,7 @@ def profile(ref_mb: float, style: str, device,
     # ---- seeding, stage by stage ----
     q = al._put(np.asarray(batch.codes, np.int32))
     lens = al._put(np.asarray(batch.lens, np.int32))
-    cap = opt.max_smems_per_read
+    cap = opt.max_smems_per_read * wd.seed_scale
     r1 = timeit("r1_prep", lambda: _smem_r1_prep(
         al.di, q, lens, min_seed_len=opt.min_seed_len,
         split_len=opt.split_len, split_width=opt.split_width, out_cap=cap))
@@ -113,7 +115,8 @@ def profile(ref_mb: float, style: str, device,
         cap), q.shape[1], cap))
     timeit("seed_rows", lambda: seed_rows(
         al.di, sm, max_occ=opt.max_occ,
-        per_read_cap=opt.max_seeds_per_read))
+        per_read_cap=opt.max_seeds_per_read * wd.seed_scale,
+        rows_per_read=wd.seed_rows))
 
     # ---- the batch as the aligner runs it ----
     _sync(dev)
@@ -166,11 +169,9 @@ def profile(ref_mb: float, style: str, device,
     first_score = np.where(cnt > 0, fields["score"][j0s], -1)
     s_rows = np.flatnonzero((cnt == 1) & (first_score >= opt.T))
     jj = j0[s_rows]
-    lq_ = fields["qe"][jj] - fields["qb"][jj]
-    rlen_ = fields["re"][jj] - fields["rb"][jj]
-    straddle = (fields["rb"][jj] < idx.l_pac) & (idx.l_pac < fields["re"][jj])
-    ok = ((lq_ > 0) & (rlen_ > 0) & (lq_ <= flatsam.QPAD)
-          & (rlen_ <= flatsam.TWIN) & ~straddle)
+    ok = flatsam.flat_geom(fields["qe"][jj] - fields["qb"][jj],
+                           fields["re"][jj] - fields["rb"][jj],
+                           fields["rb"][jj], fields["re"][jj], idx.l_pac, wd)
     flat_rows = s_rows[ok]
     N = flat_rows.size
     print(f"  [flat classification: {N} flat, {B - N} complex/unmapped]")
@@ -186,7 +187,7 @@ def profile(ref_mb: float, style: str, device,
             al.di, codes_dev, put(flat_rows.astype(np.int64)),
             put(qb.astype(np.int32)), put(lq.astype(np.int32)), put(rb),
             put(rlen.astype(np.int32)), put(rb >= idx.l_pac),
-            q_pad=flatsam.QPAD, t_win=flatsam.TWIN, a=opt.a, b=opt.b),
+            q_pad=wd.sam_q, t_win=wd.sam_t, a=opt.a, b=opt.b),
             reps=3)
         t0 = time.monotonic()
         pk = win[2].cpu()

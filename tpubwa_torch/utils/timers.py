@@ -25,6 +25,12 @@ Counters (``count``; once a batch or a call, never a read):
   pair.rescue_jobs — mate-rescue jobs that PAIR built
   fastq.fallback_batches — batches the line parser took
           (``io/fastq.py::stream_batches``)
+  fastq.wide_batches — batches the drivers placed in the wide bucket
+          (a read of 161-256 bp; a PE pair of batches counts once)
+  seed.overflow_reads — reads whose SMEM or seed list was cut to its
+          capacity (``Aligner.seed_batch_finish``)
+  pair.rescue_truncated — mate-rescue jobs whose query or target was cut
+          to its pad (``pair.run_matesw_rounds``)
 
 Under ``-t N`` the workers share one PhaseTimers, so a phase's total is
 summed over threads and may exceed the wall.  While a ``torch.profiler``

@@ -6,7 +6,8 @@
   tests/test_pe_flat.py's repeat-genome fixture plus pairs whose second
   end carries ~8 % errors, and the mate-rescue rounds really ran.
 * The generator tier (``FLAT_PE = False``) and ``ext_layout="b"`` give
-  the same text.
+  the same text, on the repeat fixture at 125 bp (the narrow widths) and
+  at 250 bp (the wide widths), with pairs on both tiers.
 * FASTQs of unequal length write every complete batch and return 1.
 """
 import io
@@ -51,23 +52,28 @@ def repeat_setup():
     return repeat_inputs()
 
 
-def repeat_inputs():
+def repeat_inputs(read_len: int = 125):
     """tests/test_pe_flat.py's repeat genome and pairs, plus a 40 kb
     unique contig with 64 pairs: they give pestat its insert-size model
     (the repeat pairs alone are too ambiguous for it), and in 32 of them
     the second end carries ~8 % extra substitutions, so its seeds miss
-    and the mate rescue has work."""
+    and the mate rescue has work.  Reads of 250 bp (insert 550 +- 100)
+    are batched by the port's reader, at the wide bucket's width."""
     from tpubwa.utils.gensim import repeat_genome
+    from tpubwa_torch.io import fastq as port_fastq
 
     rng = np.random.default_rng(23)
     codes = np.concatenate([repeat_genome(rng, 120_000),
                             rng.integers(0, 4, 40_000).astype(np.uint8)])
     contigs = [Contig("cR", 120_000, 0), Contig("cU", 40_000, 120_000)]
     idx = FMIndex.build(contigs, codes)
+    ins = {} if read_len <= 160 else dict(isize_mean=550, isize_std=100)
     r1, r2 = sim.simulate_pairs(codes[:120_000], contigs[:1], 96,
-                                length=125, err=0.01, indel=0.002, seed=31)
+                                length=read_len, err=0.01, indel=0.002,
+                                seed=31, **ins)
     u1, u2 = sim.simulate_pairs(codes[120_000:], [Contig("cU", 40_000, 0)],
-                                64, length=125, err=0.01, seed=41)
+                                64, length=read_len, err=0.01, seed=41,
+                                **ins)
     noisy = np.random.default_rng(43)
     for k in range(32, 64):
         s2 = np.array(list(u2[k][1]))
@@ -76,12 +82,14 @@ def repeat_inputs():
         u2[k] = (u2[k][0], "".join(s2), u2[k][2])
     r1 += [("u" + n, s_, q) for n, s_, q in u1]
     r2 += [("u" + n, s_, q) for n, s_, q in u2]
-    b1 = next(batch_reads([Read(n, s_, q) for n, s_, q in r1], 160, 160))
-    b2 = next(batch_reads([Read(n, s_, q) for n, s_, q in r2], 160, 160))
+    rd, batch = ((Read, batch_reads) if read_len <= 160
+                 else (port_fastq.Read, port_fastq.batch_reads))
+    b1, b2 = (next(batch([rd(n, s_, q) for n, s_, q in r], 160, 160))
+              for r in (r1, r2))
     return idx, b1, b2
 
 
-def _port_text(idx, b1, b2, layout="t", flat=True):
+def _port_text(idx, b1, b2, layout="t", flat=True, counters=None):
     from tpubwa_torch.align import pair
     from tpubwa_torch.align.pipeline import Aligner
 
@@ -92,6 +100,8 @@ def _port_text(idx, b1, b2, layout="t", flat=True):
         return pair.align_pe_batch(al, b1, b2, 0)
     finally:
         pair.FLAT_PE = True
+        if counters is not None:
+            counters.update(al.timers.counters)
 
 
 @pytest.fixture(scope="module")
@@ -108,8 +118,9 @@ def port_flat(repeat_setup):
         return core(query, *a, **kw)
 
     pair.localsw_core = counting
+    counters = {}
     try:
-        return _port_text(*repeat_setup), lanes
+        return _port_text(*repeat_setup, counters=counters), lanes, counters
     finally:
         pair.localsw_core = core
 
@@ -119,7 +130,7 @@ def test_pe_batch_matches_jax_with_rescue(repeat_setup, port_flat):
     from tpubwa.align.pipeline import Aligner as JaxAligner
 
     idx, b1, b2 = repeat_setup
-    got, lanes = port_flat
+    got, lanes, _ = port_flat
     want = jax_pe_batch(
         JaxAligner(idx, MemOptions(batch_reads=160, max_read_len=160)),
         b1, b2, 0)
@@ -128,10 +139,18 @@ def test_pe_batch_matches_jax_with_rescue(repeat_setup, port_flat):
     assert "XA:Z:" in got
 
 
-def test_pe_generator_tier_and_layout_b_same_text(repeat_setup, port_flat):
-    flat = port_flat[0]
-    assert _port_text(*repeat_setup, flat=False) == flat
-    assert _port_text(*repeat_setup, layout="b") == flat
+@pytest.mark.parametrize("read_len", [125, 250])
+def test_pe_generator_tier_and_layout_b_same_text(request, read_len):
+    if read_len == 125:
+        setup = request.getfixturevalue("repeat_setup")
+        flat, _, counters = request.getfixturevalue("port_flat")
+    else:
+        setup, counters = repeat_inputs(read_len), {}
+        flat = _port_text(*setup, counters=counters)
+    assert setup[1].codes.shape[1] == (160 if read_len <= 160 else 256)
+    assert counters["sam.flat_pairs"] > 0     # the flat tier rendered
+    assert _port_text(*setup, flat=False) == flat
+    assert _port_text(*setup, layout="b") == flat
 
 
 def test_unequal_fastqs_write_complete_batches(tmp_path):

@@ -17,7 +17,9 @@ imports; the device calls run on torch tensors.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+import operator
 import sys
 
 import numpy as np
@@ -28,6 +30,7 @@ from tpubwa_torch.align.region import AlnReg
 from tpubwa_torch.config import NARROW, MemOptions, batch_widths
 from tpubwa_torch.index.fmindex import FMIndex
 from tpubwa_torch.io import sam as samio
+from tpubwa_torch.native import load_native
 from tpubwa_torch.ops.localsw_cuda import localsw_core
 from tpubwa_torch.utils.rounds import drive_rounds
 from tpubwa_torch.utils.timers import count
@@ -341,20 +344,16 @@ def run_matesw_rounds(opt: MemOptions, gens: list, mat: torch.Tensor,
 def sam_pe_g(opt: MemOptions, idx: FMIndex, pes: list[PEStat], pair_id: int,
              names: tuple[str, str], seqs: tuple[str, str],
              quals: tuple[str, str], queries: tuple[np.ndarray, np.ndarray],
-             regs: tuple[list[AlnReg], list[AlnReg]], marked=None):
+             regs: tuple[list[AlnReg], list[AlnReg]]):
     """mem_sam_pe minus the rescue step (rescue runs batched beforehand).
     Generator yielding GAJob (CIGAR DP fills run batched by the driver).
 
-    ``marked``: pre-marked lists from the batched driver.  bwa marks
-    exactly ONCE per end (mem_sam_pe); re-marking an already-sorted list
-    re-hashes by the new positions and can flip equal-score tie-breaks
-    and sub_n counts — the flat/generator byte-parity tests caught the
-    double-marking skew in round 5."""
-    if marked is not None:
-        a = list(marked)
-    else:
-        a = [finalize.mark_primary(opt, regs[0], (pair_id << 1) | 0),
-             finalize.mark_primary(opt, regs[1], (pair_id << 1) | 1)]
+    Marks each end's list, which must not have been marked before: bwa
+    marks exactly ONCE per end (mem_sam_pe); re-marking an already-sorted
+    list re-hashes by the new positions and can flip equal-score
+    tie-breaks and sub_n counts."""
+    a = [finalize.mark_primary(opt, regs[0], (pair_id << 1) | 0),
+         finalize.mark_primary(opt, regs[1], (pair_id << 1) | 1)]
     extra_flag = 1
     o = 0
     if a[0] and a[1]:
@@ -531,9 +530,10 @@ def align_pe_batch(aligner, b1, b2, pair_id0: int, handles=None) -> str:
 
 
 def _pe_generator_text(aligner, b1, b2, pair_id0, pairs, pes, rows,
-                       other: list, marked=None) -> None:
+                       other: list) -> None:
     """Render pairs `rows` via the sam_pe_g generator path into the
-    interleaved `other` row-text list (rows 2i / 2i+1)."""
+    interleaved `other` row-text list (rows 2i / 2i+1); each pair's two
+    lists are marked there, once."""
     opt, idx = aligner.opt, aligner.idx
     gens = [
         sam_pe_g(opt, idx, pes, pair_id0 + int(i),
@@ -542,13 +542,120 @@ def _pe_generator_text(aligner, b1, b2, pair_id0, pairs, pes, rows,
                  (b1.quals[i], b2.quals[i]),
                  (b1.codes[i, : b1.lens[i]],
                   b2.codes[i, : b2.lens[i]]),
-                 pairs[i],
-                 marked=None if marked is None else marked[i])
+                 pairs[i])
         for i in rows
     ]
     for i, (recs0, recs1) in zip(rows, drive_rounds(gens, aligner.ga_exec)):
         other[2 * i] = "".join(r.line() + "\n" for r in recs0)
         other[2 * i + 1] = "".join(r.line() + "\n" for r in recs1)
+
+
+# ------------------------------------------- flat-tier pair selection ----
+
+REG_INT_FIELDS = ("rb", "re", "qb", "qe", "rid", "score", "truesc", "w",
+                  "csub", "sub_n")
+_reg_ints = operator.attrgetter(*REG_INT_FIELDS)
+
+
+def region_columns(pairs) -> dict:
+    """A batch's region lists read once into CSR columns: ``bounds``
+    [2B + 1] (end e of pair i is 2i + e, its regions in list order), an
+    int64 column for each of ``REG_INT_FIELDS`` and ``frac_rep``."""
+    ends = [end for p in pairs for end in p]
+    regs = [r for end in ends for r in end]
+    n, nf = len(regs), len(REG_INT_FIELDS)
+    bounds = np.zeros(len(ends) + 1, np.int64)
+    np.cumsum([len(end) for end in ends], out=bounds[1:])
+    ints = np.fromiter(itertools.chain.from_iterable(map(_reg_ints, regs)),
+                       np.int64, count=n * nf).reshape(n, nf).T.copy()
+    cols = dict(zip(REG_INT_FIELDS, ints))
+    cols["frac_rep"] = np.fromiter((r.frac_rep for r in regs), np.float64,
+                                   count=n)
+    cols["bounds"] = bounds
+    return cols
+
+
+def pair_term(opt: MemOptions, pe: PEStat, dist: int) -> float:
+    """mem_pair's insert-size term for two ends `dist` apart."""
+    ns = (dist - pe.avg) / pe.std
+    return 0.721 * math.log(2.0 * math.erfc(abs(ns) * M_SQRT1_2)) * opt.a
+
+
+def pair_terms(opt: MemOptions, pes: list[PEStat]):
+    """``pair_term`` over [low, high] of each direction that has not
+    failed: (offsets [4] into the table, the table; NaN where Python
+    raises)."""
+    offs, tab = [], []
+    for pe in pes:
+        offs.append(len(tab))
+        if pe.failed:
+            continue
+        for dist in range(pe.low, pe.high + 1):
+            try:
+                tab.append(pair_term(opt, pe, dist))
+            except (ZeroDivisionError, ValueError):
+                tab.append(math.nan)
+    return np.array(offs, np.int64), np.array(tab or [0.0], np.float64)
+
+
+def select_flat(opt: MemOptions, idx: FMIndex, cols: dict,
+                pes: list[PEStat], pair_id0: int, widths) -> dict:
+    """The flat tier's pair selection for a batch's ``region_columns``,
+    in one native call (``native/pesel.cpp``): mark_primary on each end,
+    mem_pair, and the test that keeps a pair flat (no second primary,
+    both primaries >= T, every emitted lane in the flat windows of
+    `widths`, XA groups after the ratio filter and the max_XA_hits cap).
+    The regions are not touched.  Returns the native outputs: by sorted
+    position ``order`` (CSR rows), ``sec``, ``sub``, ``sub_n``; by pair
+    ``flat``, ``o``, ``subo``, ``n_sub``, ``proper``; by end (2i + e)
+    ``z``, ``pick`` (the emitted region's row), ``sub_eff``,
+    ``subn_eff``, ``alt_cnt``; ``alt_rows``, the XA alternates' rows."""
+    import ctypes as c
+
+    lib = load_native()
+    fields = ("rb", "re", "qb", "qe", "rid", "score", "sub_n")
+    bounds = np.ascontiguousarray(cols["bounds"], np.int64)
+    B = (bounds.size - 1) // 2
+    n = int(bounds[-1])
+    ins = {f: np.ascontiguousarray(cols[f], np.int64) for f in fields}
+    if bounds.size != 2 * B + 1 or any(a.size != n for a in ins.values()):
+        raise ValueError("region columns do not match their bounds")
+    i64 = lambda k: np.zeros(k, np.int64)  # noqa: E731
+    out = dict(order=i64(n), sec=np.zeros(n, np.int32), sub=i64(n),
+               sub_n=i64(n), flat=np.zeros(B, np.uint8), o=i64(B),
+               subo=i64(B), n_sub=i64(B), proper=np.zeros(B, np.uint8),
+               z=i64(2 * B), pick=i64(2 * B), sub_eff=i64(2 * B),
+               subn_eff=i64(2 * B), alt_cnt=i64(2 * B),
+               alt_rows=i64(max(n, 1)))
+    offs = np.array([ct.offset for ct in idx.contigs], np.int64)
+    tab_off, tab = pair_terms(opt, pes)
+    failed = np.array([p.failed for p in pes], np.uint8)
+    low = np.array([p.low for p in pes], np.int64)
+    high = np.array([p.high for p in pes], np.int64)
+    tmp = max(opt.a + opt.b, opt.o_del + opt.e_del, opt.o_ins + opt.e_ins)
+    p = lambda a: a.ctypes.data_as(  # noqa: E731
+        c.POINTER({np.int64: c.c_int64, np.int32: c.c_int32,
+                   np.uint8: c.c_uint8, np.float64: c.c_double}[
+                       a.dtype.type]))
+    rc = lib.pe_select_flat(
+        B, p(bounds), *(p(ins[f]) for f in fields),
+        p(offs), offs.size, idx.l_pac, opt.mask_level, tmp, opt.T,
+        opt.pen_unpaired, opt.XA_drop_ratio, opt.max_XA_hits,
+        widths.sam_q, widths.sam_t, p(failed), p(low), p(high),
+        p(tab_off), p(tab), pair_id0,
+        *(p(out[k]) for k in ("order", "sec", "sub", "sub_n", "flat", "o",
+                              "subo", "n_sub", "proper", "z", "pick",
+                              "sub_eff", "subn_eff", "alt_cnt",
+                              "alt_rows")))
+    if rc == -1:
+        raise ValueError("mem_pair: an insert-size term is not finite "
+                         "(a direction's model has std 0)")
+    if rc < 0:
+        raise IndexError("a region's contig index is out of range")
+    out["alt_rows"] = out["alt_rows"][:rc]
+    out["flat"] = out["flat"].astype(bool)
+    out["proper"] = out["proper"].astype(bool)
+    return out
 
 
 def pe_sam_text(aligner, b1, b2, pair_id0: int, pairs, pes,
@@ -561,149 +668,93 @@ def pe_sam_text(aligner, b1, b2, pair_id0: int, pairs, pes,
     second primary, primary score >= T, every emitted lane flat-eligible
     geometry) — run columnar: mem_pair picks the emitted region per end
     (z-indices, possibly a shadowed region), XS is max(sub, csub) of the
-    CHOSEN region (r4's XS:i:0 hardcode is gone — rescue-inserted and
-    multi-region ends now stay flat), XA alternates render as extra
-    flat_core lanes exactly like the SE multi-region path.  Everything
-    else (second primaries/supplementary, sub-T primaries, non-flat
-    geometry) renders via the sam_pe_g generator path.  Byte-identical by
-    construction (tests/test_pe_flat.py incl. the repeat-genome fixture).
+    CHOSEN region, XA alternates render as extra flat_core lanes exactly
+    like the SE multi-region path.  The selection is one pass over the
+    region lists (``region_columns``) and one native call
+    (``select_flat``); ``sam.flat_pairs`` counts the pairs it keeps.
+    Everything else (second primaries/supplementary, sub-T primaries,
+    non-flat geometry, cigar-pack overflow) renders via the sam_pe_g
+    generator path.  Byte-identical by construction
+    (tests/test_torch_pe.py, tests/test_torch_pe_select.py).
     """
     opt, idx = aligner.opt, aligner.idx
     l_pac = idx.l_pac
     B = b1.n
     wd = batch_widths(opt, b1.codes.shape[1])   # both ends' (same_width)
-    marked = []
-    for i, (r0, r1) in enumerate(pairs):
-        pid = pair_id0 + i
-        marked.append(
-            (finalize.mark_primary(opt, r0, (pid << 1) | 0),
-             finalize.mark_primary(opt, r1, (pid << 1) | 1)))
-
-    def geom(e):
-        lq, rl = e.qe - e.qb, e.re - e.rb
-        return (0 < lq <= wd.sam_q and 0 < rl <= wd.sam_t
-                and not (e.rb < l_pac < e.re))
-
-    # ---- per-pair flat eligibility + pair scoring + lane selection ----
-    sel = []
-    for i, (a0, a1) in enumerate(marked):
-        if not FLAT_PE or not a0 or not a1:
-            continue
-        if (any(p.secondary < 0 for p in a0[1:])
-                or any(p.secondary < 0 for p in a1[1:])):
-            continue  # second primary (supplementary path) -> generator
-        if a0[0].score < opt.T or a1[0].score < opt.T:
-            continue
-        o, subo, n_sub, z = mem_pair(opt, idx, pes, (a0, a1),
-                                     pair_id0 + i)
-        score_un = a0[0].score + a1[0].score - opt.pen_unpaired
-        proper = o > 0 and o > score_un
-        info = dict(i=i, o=o, subo=subo, n_sub=n_sub, proper=proper,
-                    score_un=score_un,
-                    pfrac=a0[0].frac_rep + a1[0].frac_rep)
-        bad = False
-        for end, a in ((0, a0), (1, a1)):
-            k = z[end] if proper else 0
-            c = a[k]
-            if not geom(c):
-                bad = True
-                break
-            # XA group k (gen_xa_g: ratio filter, then count cap)
-            thr = a[k].score * opt.XA_drop_ratio
-            alt_j = [j for j, p in enumerate(a)
-                     if p.secondary_all == k and p.score >= thr]
-            if len(alt_j) > opt.max_XA_hits:
-                alt_j = []
-            if any(not geom(a[j]) for j in alt_j):
-                bad = True
-                break
-            sub_eff = a[c.secondary].score if c.secondary >= 0 else c.sub
-            info[f"c{end}"] = c
-            info[f"alts{end}"] = [a[j] for j in alt_j]
-            info[f"sub{end}"] = sub_eff
-            info[f"subn{end}"] = c.sub_n
-        if not bad:
-            sel.append(info)
-
     other: list = [""] * (2 * B)
-    flat = np.array([s["i"] for s in sel], dtype=np.int64)
+    keep = np.zeros(B, bool)
+    flat = np.array([], np.int64)
+    if FLAT_PE:
+        cols = region_columns(pairs)
+        sel = select_flat(opt, idx, cols, pes, pair_id0, wd)
+        flat = np.flatnonzero(sel["flat"])
+        count(aligner.timers, "sam.flat_pairs", flat.size)
 
-    cores = None
-    if flat.size:
-        N = flat.size
-
-        def reg_cols(regs):
-            arr = lambda f, d=np.int64: np.array(  # noqa: E731
-                [getattr(x, f) for x in regs], d)
-            return dict(rb=arr("rb"), re=arr("re"), qb=arr("qb"),
-                        qe=arr("qe"), score=arr("score"),
-                        truesc=arr("truesc"), aw=arr("w"),
-                        csub=arr("csub"),
-                        frac=np.array([x.frac_rep for x in regs],
-                                      np.float64))
-
+    N = flat.size
+    if N:
         def end_cols(end):
-            c = reg_cols([s[f"c{end}"] for s in sel])
-            c["sub"] = np.array([s[f"sub{end}"] for s in sel], np.int64)
-            c["sub_n"] = np.array([s[f"subn{end}"] for s in sel],
-                                  np.int64)
-            c["acnt"] = np.array([len(s[f"alts{end}"]) for s in sel],
-                                 np.int64)
-            alts = [x for s in sel for x in s[f"alts{end}"]]
-            return c, (reg_cols(alts) if alts else None), len(alts)
+            """The end's emitted regions' columns, and the rows of its
+            lanes: the emitted regions, then their XA alternates."""
+            e = 2 * flat + end
+            pick = sel["pick"][e]
+            acnt = sel["alt_cnt"][e]
+            on_end = np.repeat(np.arange(2 * B) % 2 == end, sel["alt_cnt"])
+            c = {f: cols[f][pick] for f in ("rb", "score", "csub")}
+            c.update(frac=cols["frac_rep"][pick], sub=sel["sub_eff"][e],
+                     sub_n=sel["subn_eff"][e], acnt=acnt,
+                     off=np.cumsum(acnt) - acnt)
+            return c, np.concatenate([pick, sel["alt_rows"][on_end]])
 
-        c0, alt0, A0 = end_cols(0)
-        c1, alt1, A1 = end_cols(1)
+        c0, rows0 = end_cols(0)
+        c1, rows1 = end_cols(1)
+        A0 = rows0.size - N
         if codes_dev1 is None:
             codes_dev1 = aligner._put(np.asarray(b1.codes, np.int32))
         if codes_dev2 is None:
             codes_dev2 = aligner._put(np.asarray(b2.codes, np.int32))
 
-        def run_core(codes_dev, lens_b, cc, alt, na):
+        def run_core(codes_dev, lens_b, cc, rows):
             rd = np.concatenate([flat, np.repeat(flat, cc["acnt"])])
             L = np.asarray(lens_b, np.int64)[rd]
-            cat = lambda f: (np.concatenate([cc[f], alt[f]])  # noqa: E731
-                             if alt is not None else cc[f])
             return flatsam.flat_core(
-                aligner, codes_dev, rd, L, cat("rb"), cat("re"),
-                cat("qb"), cat("qe"), cat("truesc"), cat("aw"), wd)
+                aligner, codes_dev, rd, L,
+                *(cols[f][rows] for f in ("rb", "re", "qb", "qe", "truesc",
+                                          "w")), wd)
 
-        core0 = run_core(codes_dev1, b1.lens, c0, alt0, A0)
-        core1 = run_core(codes_dev2, b2.lens, c1, alt1, A1)
+        core0 = run_core(codes_dev1, b1.lens, c0, rows0)
+        core1 = run_core(codes_dev2, b2.lens, c1, rows1)
 
         # pair ok = every lane (both primaries + all alternates) packed
-        off0 = np.cumsum(c0["acnt"]) - c0["acnt"]
-        off1 = np.cumsum(c1["acnt"]) - c1["acnt"]
-        okp = core0["ok"][:N] & core1["ok"][:N]
-        for j in range(N):
-            a_ok = core0["ok"][N + off0[j]: N + off0[j] + c0["acnt"][j]]
-            b_ok = core1["ok"][N + off1[j]: N + off1[j] + c1["acnt"][j]]
-            okp[j] = okp[j] and bool(a_ok.all()) and bool(b_ok.all())
-        cores = (core0, core1, c0, c1, okp, off0, off1, A0, A1)
+        def alts_ok(core, cc):
+            n_bad = np.concatenate([[0], np.cumsum(~core["ok"][N:])])
+            return n_bad[cc["off"] + cc["acnt"]] == n_bad[cc["off"]]
 
-    keep_i = (set(flat[cores[4]].tolist()) if cores is not None
-              else set())
-    rest = sorted(set(range(B)) - keep_i)
+        okp = (core0["ok"][:N] & core1["ok"][:N] & alts_ok(core0, c0)
+               & alts_ok(core1, c1))
+        keep[flat[okp]] = True
+
+    rest = np.flatnonzero(~keep).tolist()
     count(aligner.timers, "sam.generator_reads", 2 * len(rest))
     if rest:
         _pe_generator_text(aligner, b1, b2, pair_id0, pairs, pes, rest,
-                           other, marked=marked)
+                           other)
 
+    if not keep.any():
+        return "".join(other)
     names = [x for p in zip(b1.names[:B], b2.names[:B]) for x in p]
     seqs = [x for p in zip(b1.seqs[:B], b2.seqs[:B]) for x in p]
     quals = [x for p in zip(b1.quals[:B], b2.quals[:B]) for x in p]
-    if cores is None or not keep_i:
-        return "".join(other)
-    core0, core1, c0, c1, okp, off0, off1, A0, A1 = cores
-    N = flat.size
 
-    # ---- pair scores (precomputed during selection) ----
-    o = np.array([s["o"] for s in sel], np.int64)
-    subo = np.array([s["subo"] for s in sel], np.int64)
-    n_sub = np.array([s["n_sub"] for s in sel], np.int64)
-    proper = np.array([s["proper"] for s in sel], bool)
-    score_un = np.array([s["score_un"] for s in sel], np.int64)
-    pfrac = np.array([s["pfrac"] for s in sel], np.float64)
+    # ---- pair scores (from the selection) ----
+    o = sel["o"][flat]
+    subo = sel["subo"][flat]
+    n_sub = sel["n_sub"][flat]
+    proper = sel["proper"][flat]
+    prim0 = sel["order"][cols["bounds"][2 * flat]]
+    prim1 = sel["order"][cols["bounds"][2 * flat + 1]]
+    score_un = (cols["score"][prim0] + cols["score"][prim1]
+                - opt.pen_unpaired)
+    pfrac = cols["frac_rep"][prim0] + cols["frac_rep"][prim1]
     o0 = o == 0
 
     s0, s1 = c0["score"], c1["score"]
@@ -801,8 +852,8 @@ def pe_sam_text(aligner, b1, b2, pair_id0: int, pairs, pes,
     xs0 = np.maximum(c0["sub"], c0["csub"])
     xs1 = np.maximum(c1["sub"], c1["csub"])
     # alt lane ranges in merged lane space
-    alt_lo0 = 2 * N + off0
-    alt_lo1 = 2 * N + A0 + off1
+    alt_lo0 = 2 * N + c0["off"]
+    alt_lo1 = 2 * N + A0 + c1["off"]
     rec = dict(
         b=lane_b, lane=ilv(np.arange(0, 2 * N, 2), np.arange(1, 2 * N, 2)),
         flag=ilv(flag0, flag1), mapq=ilv(mapq0, mapq1),

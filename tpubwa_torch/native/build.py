@@ -1,7 +1,8 @@
 """Build and load the port's native host library.
 
 The C++ sources in this directory (SA-IS index construction, seed
-chaining (``chain.cpp``), the extension replay, SAM assembly; ``core.h``
+chaining (``chain.cpp``), the extension replay, SAM assembly, the PE
+flat tier's pair selection (``pesel.cpp``); ``core.h``
 holds what chaining and the replay share) compile into one shared
 library with a plain C interface, loaded via ctypes.  ``load_native``
 compiles them with g++ (``GXX``) at first use into ``build/tpubwa_torch/``,
@@ -144,4 +145,22 @@ def _declare(lib) -> None:
         i32p, i64p, i64p,               # rnext_rid, pnext, tlen
         i32p, i32p,                     # alt_lo, alt_hi
         u8p, c.c_int64,                 # out, out_cap
+    ]
+
+    lib.pe_select_flat.restype = c.c_int64
+    lib.pe_select_flat.argtypes = [
+        c.c_int64, i64p,                # B pairs, bounds [2B + 1]
+        i64p, i64p, i64p, i64p,         # rb, re, qb, qe
+        i64p, i64p, i64p,               # rid, score, sub_n
+        i64p, c.c_int64, c.c_int64,     # contig_off, n_contigs, l_pac
+        c.c_double, c.c_int64,          # mask_level, tmp
+        c.c_int64, c.c_int64,           # T, pen_unpaired
+        c.c_double, c.c_int64,          # XA_drop_ratio, max_XA_hits
+        c.c_int64, c.c_int64,           # sam_q, sam_t
+        u8p, i64p, i64p,                # pe failed, low, high
+        i64p, f64p, c.c_int64,          # tab_off, tab, pair_id0
+        i64p, i32p, i64p, i64p,         # order, sec, sub, sub_n
+        u8p, i64p, i64p, i64p,          # flat, o, subo, n_sub
+        u8p, i64p, i64p,                # proper, z, pick
+        i64p, i64p, i64p, i64p,         # sub_eff, subn_eff, alt_cnt, alts
     ]

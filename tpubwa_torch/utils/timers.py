@@ -21,6 +21,9 @@ host steps around them.  No phase nests inside another:
 Counters (``count``; once a batch or a call, never a read):
 
   sam.generator_reads — reads the generator tier of SAM rendered
+  sam.flat_pairs — PE pairs the flat tier's native selection kept flat
+          (``align/pair.py::pe_sam_text``; a pair whose cigar overflows
+          its pack still goes to the generator tier)
   bsw.calls, bsw.rounds — ``flatext.run_phased`` calls and their rounds
   pair.rescue_jobs — mate-rescue jobs that PAIR built
   fastq.fallback_batches — batches the line parser took

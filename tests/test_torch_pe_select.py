@@ -1,5 +1,5 @@
 """The PE flat tier's pair selection in one native call
-(``pair.select_flat``, ``native/pesel.cpp``) against the Python it
+(``pair.select_flat``, ``native/flatsel.cpp``) against the Python it
 replaced: ``finalize.mark_primary`` on each end, ``pair.mem_pair`` and
 the flat-eligibility loop that ``pe_sam_text`` ran pair by pair (kept
 here as ``python_selection``), with exact equality of every output: each

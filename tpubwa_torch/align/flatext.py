@@ -15,7 +15,7 @@ import ctypes
 
 import numpy as np
 
-from tpubwa_torch.align.region import AlnReg
+from tpubwa_torch.align.region import AlnReg, read_regions
 from tpubwa_torch.config import MemOptions, batch_widths
 from tpubwa_torch.native import load_native
 from tpubwa_torch.ops.extend_flat import (T_PAD, extend_jobs,
@@ -244,20 +244,7 @@ def finalize_regs(handle, results: np.ndarray, n_reads: int,
                   n_jobs: int) -> list[list[AlnReg]]:
     """native ext_finalize: containment replay -> list[list[AlnReg]]."""
     fields, bounds = finalize_fields(handle, results, n_reads, n_jobs)
-    out: list[list[AlnReg]] = []
-    for r in range(n_reads):
-        regs = []
-        for i in range(int(bounds[r]), int(bounds[r + 1])):
-            regs.append(AlnReg(
-                rb=int(fields["rb"][i]), re=int(fields["re"][i]),
-                qb=int(fields["qb"][i]), qe=int(fields["qe"][i]),
-                rid=int(fields["rid"][i]), score=int(fields["score"][i]),
-                truesc=int(fields["truesc"][i]), w=int(fields["w"][i]),
-                seedcov=int(fields["seedcov"][i]),
-                seedlen0=int(fields["seedlen0"][i]),
-                frac_rep=float(fields["frac_rep"][i])))
-        out.append(regs)
-    return out
+    return [read_regions(fields, bounds, r) for r in range(n_reads)]
 
 
 def run_phased(aligner, codes_dev, lens_dev, handle, jobs: dict,

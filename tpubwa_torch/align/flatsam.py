@@ -3,19 +3,21 @@
 Reads are processed as columnar numpy + a few device calls + one native
 emit:
 
+  * `select_se` — the flat tier's selection of a whole batch in one
+    native call (native/flatsel.cpp, shared with the PE selection):
+    sort_dedup + mark_primary in the single-primary fast case, the XA
+    group, and the test that every emitted lane fits the flat windows
   * `flat_core` — the shared per-lane pipeline (records AND their XA
     alternates are "lanes"): device window gathers, vectorized
     band-width/retry control (replicas of infer_bw and reg2aln_g's
     band-doubling loop), device-RLE'd cigars, vectorized edge-deletion
     squeeze, NM/MD inputs from a device mismatch pack
-  * single-region reads: direct columnar emission
-  * multi-region reads (`classify_multi`): columnar sort_dedup +
-    mark_primary for the single-primary fast case
   * SAM text: ONE native call (native/samemit.cpp) renders every record
 
-Everything else (patch-triggering region geometry, multiple primaries /
-supplementary alignments, cigar-pack overflow) goes to the per-read
-generator tier, whose output is identical by construction.
+Two tiers: the flat tier above, and the per-read generator tier for
+everything else (patch-triggering region geometry, multiple primaries /
+supplementary alignments, lanes outside the windows, cigar-pack
+overflow), whose output is identical by construction.
 
 The device halves (`_flat_windows`, `_gather_rows`) are torch ops and
 `_ga_rows` is one kernel launch on a CUDA device; the host functions are
@@ -30,13 +32,12 @@ import numpy as np
 import torch
 
 from tpubwa_torch.align import finalize
-from tpubwa_torch.align.region import AlnReg
+from tpubwa_torch.align.region import read_regions
 from tpubwa_torch.config import NARROW, MemOptions, Widths, batch_widths
-from tpubwa_torch.native import load_native
+from tpubwa_torch.native import as_ptr, load_native
 from tpubwa_torch.ops import global_align_cuda
 from tpubwa_torch.ops.fm import DeviceIndex, ref_window_right
-from tpubwa_torch.ops.global_align import (cigar_nm_md,
-                                           global_align_cigar_batch)
+from tpubwa_torch.ops.global_align import global_align_cigar_batch
 from tpubwa_torch.utils.rounds import drive_rounds
 from tpubwa_torch.utils.timers import count
 
@@ -44,8 +45,6 @@ from tpubwa_torch.utils.timers import count
 # (``config.Widths`` sam_q, sam_t)
 QPAD = NARROW.sam_q     # query window pad (== GA bucket Q)
 TWIN = NARROW.sam_t     # reference window pad (== GA bucket T)
-MD_CHARS = "ACGTN"
-CIGAR_OPS = "MIDSH"
 
 
 def _trunci(x) -> np.ndarray:
@@ -217,7 +216,8 @@ def flat_core(aligner, codes_dev, rd, L, rb, re, qb, qe, truesc, aw,
 
     rd indexes rows of codes_dev; all other inputs are int64 [N] columns.
     The windows are the batch's bucket's (`widths`: ``sam_q`` x
-    ``sam_t``), which every lane's geometry fits (``flat_geom``).
+    ``sam_t``), which every lane's geometry fits (``select_se`` /
+    ``pair.select_flat``).
     Returns a dict of emission columns; ``ok`` is False for lanes whose
     cigar overflowed the GA_K pack (callers re-render those via the
     generator path)."""
@@ -370,95 +370,6 @@ _CORE_LANE_KEYS = ("segs", "nseg", "lead_d", "trail_d", "p1", "rid",
                    "lq", "rlen", "win_row", "reflen")
 
 
-def emit_flat(aligner, names, seqs, quals, other, core: dict,
-              rec: dict) -> str:
-    """Render the full output text: flat records (per-record columns in
-    `rec`: b/lane/flag/mapq/score/xs/rnext/pnext/tlen/alt_lo/alt_hi,
-    ascending rec b; per-lane cigar/NM columns in `core` cover records
-    AND their XA alternate lanes) interleaved with pre-rendered `other`
-    row text.  The native emitter renders everything; the Python emitter
-    takes over only when it reports an MD-buffer overflow."""
-    text = _emit_native(aligner, names, seqs, quals, other, core, rec)
-    if text is not None:
-        return text
-    return _emit_py(aligner, names, seqs, quals, other, core, rec)
-
-
-def _lane_cigar(core, i):
-    return [(int(v) & 3, int(v) >> 2)
-            for v in core["segs"][i, : int(core["nseg"][i])]]
-
-
-def _lane_cigar_str(core, i):
-    cs = "".join(f"{ln}{CIGAR_OPS[op]}" for op, ln in _lane_cigar(core, i))
-    c5, c3 = int(core["clip5"][i]), int(core["clip3"][i])
-    if c5:
-        cs = f"{c5}S" + cs
-    if c3:
-        cs = cs + f"{c3}S"
-    return cs
-
-
-def _lane_nm_md(core, i, want_md: bool):
-    if core["nm_in"][i] >= 0:
-        nm_i = int(core["nm_in"][i])
-        if not want_md:
-            return nm_i, ""
-        parts = []
-        prev = 0
-        for c, t in zip(core["mm_pos"][i, :nm_i], core["mm_let"][i, :nm_i]):
-            parts.append(str(int(c) - prev))
-            parts.append(MD_CHARS[int(t)])
-            prev = int(c) + 1
-        parts.append(str(int(core["lq"][i]) - prev))
-        return nm_i, "".join(parts)
-    w_i = int(core["win_row"][i])
-    full = ([(2, int(core["lead_d"][i]))] if core["lead_d"][i] else []) \
-        + _lane_cigar(core, i) \
-        + ([(2, int(core["trail_d"][i]))] if core["trail_d"][i] else [])
-    nm_i, md_i = cigar_nm_md(core["qh"][w_i, : core["lq"][i]],
-                             core["th"][w_i, : core["rlen"][i]], full)
-    return nm_i, md_i if want_md else ""
-
-
-def _emit_py(aligner, names, seqs, quals, other, core, rec) -> str:
-    idx = aligner.idx
-    cnames = [c.name for c in idx.contigs]
-    rows = [other[b] or "" for b in range(len(other))]
-    for r in range(rec["b"].size):
-        b = int(rec["b"][r])
-        i = int(rec["lane"][r])
-        nm_i, md_i = _lane_nm_md(core, i, True)
-        cs = _lane_cigar_str(core, i)
-        cid = int(core["rid"][i])
-        if core["rev"][i]:
-            seq = seqs[b].translate(finalize.REVCOMP_TRANS)[::-1]
-            qual = quals[b][::-1] if quals[b] else "*"
-        else:
-            seq = seqs[b]
-            qual = quals[b] or "*"
-        nr = int(rec["rnext"][r])
-        rnext_s = "*" if nr == -1 else ("=" if nr == -2 else cnames[nr])
-        xa = ""
-        if rec["alt_hi"][r] > rec["alt_lo"][r]:
-            parts = []
-            for a in range(int(rec["alt_lo"][r]), int(rec["alt_hi"][r])):
-                nm_a, _ = _lane_nm_md(core, a, False)
-                strand = "-" if core["rev"][a] else "+"
-                parts.append(f"{cnames[int(core['rid'][a])]},{strand}"
-                             f"{int(core['p1'][a])},"
-                             f"{_lane_cigar_str(core, a)},{nm_a};")
-            xa = "\tXA:Z:" + "".join(parts)
-        rows[b] = (f"{names[b]}\t{int(rec['flag'][r])}\t{cnames[cid]}\t"
-                   f"{int(core['p1'][i])}\t{int(rec['mapq'][r])}\t"
-                   f"{cs}\t{rnext_s}\t{int(rec['pnext'][r])}\t"
-                   f"{int(rec['tlen'][r])}\t{seq}\t{qual}\t"
-                   f"NM:i:{int(nm_i)}\tMD:Z:{md_i}\t"
-                   f"AS:i:{int(rec['score'][r])}\t"
-                   f"XS:i:{int(rec['xs'][r])}{xa}\n")
-    return "".join(rows)
-
-
 def _concat_strs(strs):
     """Concatenate strings into (bytes, int64 offsets[len+1])."""
     enc = [s.encode() for s in strs]
@@ -468,11 +379,17 @@ def _concat_strs(strs):
     return b"".join(enc), off
 
 
-def _emit_native(aligner, names, seqs, quals, other, core, rec
-                 ) -> str | None:
-    """One native call assembles every flat record's line (NM/MD, cigar
-    strings, XA alternates, revcomp, field formatting) and splices the
-    pre-rendered non-flat rows in row order (native/samemit.cpp)."""
+def emit_flat(aligner, names, seqs, quals, other, core: dict,
+              rec: dict) -> str:
+    """Render the full output text: flat records (per-record columns in
+    `rec`: b/lane/flag/mapq/score/xs/rnext/pnext/tlen/alt_lo/alt_hi,
+    ascending rec b; per-lane cigar/NM columns in `core` cover records
+    AND their XA alternate lanes) interleaved with pre-rendered `other`
+    row text.  One native call assembles every flat record's line
+    (NM/MD, cigar strings, XA alternates, revcomp, field formatting) and
+    splices the non-flat rows in row order (native/samemit.cpp).  Raises
+    RuntimeError when a record's MD string overflows the emitter's
+    buffer, which no lane in the flat windows can reach."""
     import ctypes
 
     lib = load_native()
@@ -541,8 +458,11 @@ def _emit_native(aligner, names, seqs, quals, other, core, rec
         outb.ctypes.data_as(u8p), c.c_int64(cap),
     ]
     ret = lib.sam_emit_se(*args)
-    if ret < 0:   # MD buffer overflow sentinel -> Python emitter
-        return None
+    if ret < 0:   # -1 - r: record r's MD string overflowed
+        r = -1 - ret
+        raise RuntimeError(
+            f"sam_emit_se: the MD string of record {r} (read "
+            f"{names[int(rec['b'][r])]}) overflowed its buffer")
     if ret > cap:
         outb = np.empty(ret, np.uint8)
         args[-2] = outb.ctypes.data_as(u8p)
@@ -551,309 +471,119 @@ def _emit_native(aligner, names, seqs, quals, other, core, rec
     return outb[:ret].tobytes().decode()
 
 
-def hash64_vec(key: np.ndarray) -> np.ndarray:
-    """finalize.hash_64 (Wang 64-bit mix), vectorized on uint64."""
-    u = np.uint64
-    k = key.astype(np.uint64)
-    k = k + ~(k << u(32))
-    k ^= k >> u(22)
-    k = k + ~(k << u(13))
-    k ^= k >> u(8)
-    k = k + (k << u(3))
-    k ^= k >> u(15)
-    k = k + ~(k << u(27))
-    k ^= k >> u(31)
-    return k
+# select_se's tiers (native/flatsel.cpp)
+UNMAPPED, FLAT, GENERATOR = 0, 1, 2
 
 
-def flat_geom(lq, rlen, rb, re, l_pac: int, widths: Widths):
-    """Lanes whose region fits the flat tier's windows (``widths``) and
-    does not straddle the forward/reverse boundary."""
-    return ((lq > 0) & (rlen > 0) & (lq <= widths.sam_q)
-            & (rlen <= widths.sam_t) & ~((rb < l_pac) & (l_pac < re)))
+def select_se(opt: MemOptions, fields: dict, bounds: np.ndarray,
+              read_id0: int, l_pac: int, widths: Widths) -> dict:
+    """The flat tier's selection for an SE batch's region columns
+    (``flatext.finalize_fields``' fields and bounds [B + 1]), in one
+    native call (``native/flatsel.cpp::se_select_flat``).  By read:
+    ``tier`` (``UNMAPPED``, ``FLAT`` or ``GENERATOR``); where flat, the
+    primary's row ``prim`` (-1 elsewhere), its mark_primary ``sub`` and
+    ``sub_n`` and its XA alternates ``alt_cnt``, whose rows fill
+    ``alt_rows`` in read order.  The rules are those of the native
+    entry's header; the regions are not touched."""
+    cols = ("rb", "re", "qb", "qe", "rid", "score")
+    bounds = np.ascontiguousarray(bounds, np.int64)
+    B = bounds.size - 1
+    n = int(bounds[-1]) if B >= 0 else 0
+    if (B < 0 or bounds[0] != 0 or (np.diff(bounds) < 0).any()
+            or any(len(fields[f]) < n for f in cols)):
+        raise ValueError("region columns do not match their bounds")
+    ins = [np.ascontiguousarray(fields[f][:n], np.int64) for f in cols]
+    i64 = lambda k: np.zeros(k, np.int64)  # noqa: E731
+    out = dict(tier=np.zeros(B, np.uint8), prim=i64(B), sub=i64(B),
+               sub_n=i64(B), alt_cnt=i64(B), alt_rows=i64(max(n, 1)))
+    tmp = max(opt.a + opt.b, opt.o_del + opt.e_del, opt.o_ins + opt.e_ins)
+    n_alt = load_native().se_select_flat(
+        B, as_ptr(bounds), *map(as_ptr, ins), l_pac, opt.mask_level, tmp,
+        opt.T, opt.XA_drop_ratio, opt.max_XA_hits, opt.max_chain_gap,
+        widths.sam_q, widths.sam_t, read_id0,
+        *(as_ptr(out[k]) for k in ("tier", "prim", "sub", "sub_n",
+                                   "alt_cnt", "alt_rows")))
+    out["alt_rows"] = out["alt_rows"][:n_alt]
+    return out
 
 
-def classify_multi(opt: MemOptions, fields: dict, bounds: np.ndarray,
-                   rows: np.ndarray, read_id0: int, l_pac: int,
-                   widths: Widths):
-    """Columnar sort_dedup + mark_primary for reads with >= 2 regions —
-    the single-primary fast case (every non-primary region shadowed by
-    the primary: bwa's z-list stays [0]).
-
-    Exact-semantics subset: reads whose region geometry could trigger
-    sort_dedup's redundancy/patch inner loop, or that produce a second
-    primary (supplementary alignments), or whose primary/XA lanes are not
-    flat-eligible, are returned as fallback for the generator path.
-
-    Returns a dict of per-read columns over `rows`:
-      good   : handled here (record or unmapped)
-      unmap  : good reads whose primary score < T
-      prim_j : primary's region row in `fields` (valid where good)
-      sub, sub_n : mark_primary outputs for the MAPQ formula
-      alt_j  : flattened XA alternate region rows (reads in `rows` order,
-               gen_xa order within read), alt_cnt per read
-    """
-    mcg = opt.max_chain_gap
-    cnts = (bounds[rows + 1] - bounds[rows]).astype(np.int64)
-    tot = int(cnts.sum())
-    starts = bounds[rows].astype(np.int64)
-    base = np.cumsum(cnts) - cnts
-    offs_in = np.arange(tot, dtype=np.int64) - np.repeat(base, cnts)
-    reg_j = np.repeat(starts, cnts) + offs_in
-    grp = np.repeat(np.arange(rows.size, dtype=np.int64), cnts)
-    sc = fields["score"][reg_j].astype(np.int64)
-    rb = fields["rb"][reg_j].astype(np.int64)
-    re_ = fields["re"][reg_j].astype(np.int64)
-    qb = fields["qb"][reg_j].astype(np.int64)
-    qe = fields["qe"][reg_j].astype(np.int64)
-    rid = fields["rid"][reg_j].astype(np.int64)
-
-    bad = np.zeros(rows.size, bool)
-
-    # --- 1. would sort_dedup's redundancy/patch loop run? (regions
-    # adjacent in (read, re) order closer than max_chain_gap) ---
-    o1 = np.lexsort((re_, grp))
-    adj = grp[o1][1:] == grp[o1][:-1]
-    trig = adj & (rid[o1][1:] == rid[o1][:-1]) & (
-        rb[o1][1:] < re_[o1][:-1] + mcg)
-    bad[grp[o1][1:][trig]] = True
-
-    # --- 2. final sort (-score, rb, qb) + exact-duplicate drop ---
-    o2 = np.lexsort((qb, rb, -sc, grp))
-    g2, s2 = grp[o2], sc[o2]
-    r2, q2 = rb[o2], qb[o2]
-    dup = np.zeros(tot, bool)
-    dup[1:] = ((g2[1:] == g2[:-1]) & (s2[1:] == s2[:-1])
-               & (r2[1:] == r2[:-1]) & (q2[1:] == q2[:-1]))
-    keep = ~dup
-    k2 = keep.astype(np.int64)
-    csum = np.cumsum(k2)
-    first = np.zeros(tot, bool)
-    first[0] = True
-    first[1:] = g2[1:] != g2[:-1]
-    seg_base = np.maximum.accumulate(np.where(first, csum - k2, -1))
-    rank = csum - k2 - seg_base           # dedup-compacted index i
-
-    # --- 3. mark_primary order: (-score, hash_64(read_id + i)) ---
-    h = hash64_vec(read_id0 + rows[g2] + rank)
-    kidx = np.flatnonzero(keep)
-    g3s, s3s, h3s = g2[kidx], s2[kidx], h[kidx]
-    o3 = np.lexsort((h3s, -s3s, g3s))
-    gk = g3s[o3]
-    pick = kidx[o3]                        # rows of o2 order
-    j3 = reg_j[o2][pick]
-    sc3 = s2[pick]
-    qb3 = qb[o2][pick]
-    qe3 = qe[o2][pick]
-    rb3 = rb[o2][pick]
-    re3 = re_[o2][pick]
-
-    firstk = np.zeros(gk.size, bool)
-    firstk[0] = True
-    firstk[1:] = gk[1:] != gk[:-1]
-    seg_id = np.cumsum(firstk) - 1
-    prim_pos = np.flatnonzero(firstk)
-    P_sc = sc3[prim_pos][seg_id]
-    P_qb = qb3[prim_pos][seg_id]
-    P_qe = qe3[prim_pos][seg_id]
-
-    ov = np.minimum(qe3, P_qe) - np.maximum(qb3, P_qb)
-    min_l = np.minimum(qe3 - qb3, P_qe - P_qb)
-    shadowed = (~firstk) & (ov > 0) & (ov >= min_l * opt.mask_level)
-    unshadowed = (~firstk) & ~shadowed
-    bad[gk[unshadowed]] = True             # second primary -> generators
-
-    tmp = max(opt.a + opt.b, opt.o_del + opt.e_del,
-              opt.o_ins + opt.e_ins)
-    sub = np.maximum.reduceat(np.where(shadowed, sc3, 0), prim_pos)
-    sub_n = np.add.reduceat(
-        (shadowed & (P_sc - sc3 <= tmp)).astype(np.int64), prim_pos)
-
-    # --- XA eligibility (gen_xa_g: ratio filter, then count cap) ---
-    xa_flag = shadowed & (sc3 >= P_sc * opt.XA_drop_ratio)
-    cnt_xa = np.add.reduceat(xa_flag.astype(np.int64), prim_pos)
-    xa_ok = cnt_xa <= opt.max_XA_hits
-    xa_use = xa_flag & xa_ok[seg_id]
-
-    # --- flat geometry for every lane this path would emit ---
-    lq3 = qe3 - qb3
-    rl3 = re3 - rb3
-    geom = flat_geom(lq3, rl3, rb3, re3, l_pac, widths)
-    need = firstk | xa_use
-    badgeom = need & ~geom
-    bad[gk[badgeom]] = True
-
-    good = ~bad
-    # gen_xa runs DP for alternates even when the read ends up unmapped;
-    # results are discarded, so the unmapped-fast case needs no lanes
-    unmap = good & (sc3[prim_pos] < opt.T)
-    alt_rows = np.flatnonzero(xa_use & good[gk] & ~unmap[gk])
-    alt_j = j3[alt_rows]
-    alt_cnt = np.zeros(rows.size, np.int64)
-    if alt_rows.size:
-        ids, cc = np.unique(gk[alt_rows], return_counts=True)
-        alt_cnt[ids] = cc
-    return dict(good=good, unmap=unmap, prim_j=j3[prim_pos],
-                sub=sub, sub_n=sub_n, alt_j=alt_j, alt_cnt=alt_cnt)
+def records_ok(ok: np.ndarray, n_rec: int, alt_off: np.ndarray,
+               alt_cnt: np.ndarray) -> np.ndarray:
+    """By record: its lane (``ok[:n_rec]``) and every one of its XA
+    lanes (``ok[n_rec + alt_off : n_rec + alt_off + alt_cnt]``) packed
+    their cigars."""
+    n_bad = np.concatenate([[0], np.cumsum(~ok[n_rec:])])
+    return ok[:n_rec] & (n_bad[alt_off + alt_cnt] == n_bad[alt_off])
 
 
 def se_text_batch(aligner, batch, read_id0: int, fields: dict,
                   bounds: np.ndarray, codes_dev=None) -> str:
     """SAM text for a ReadBatch from flat region arrays (fields/bounds as
     returned by flatext.finalize_fields).  codes_dev: the device-resident
-    read batch from seeding (re-uploaded if absent).  The flat tiers run
+    read batch from seeding (re-uploaded if absent).  The flat tier runs
     at the batch's bucket (``config.batch_widths`` of its width).
 
-    Three tiers: single-region reads (columnar), multi-region reads in
-    the single-primary fast case (columnar, with XS/XA from the same
-    flat_core lanes — the repeat-genome common case), and a generator
-    tier for everything else; all byte-identical to the generator
-    pipeline."""
+    Two tiers, chosen by ``select_se``: the flat tier (columnar, with
+    XS/XA from the same flat_core lanes) and the generator tier for
+    everything else; both byte-identical to the generator pipeline."""
     opt: MemOptions = aligner.opt
     idx = aligner.idx
-    l_pac = idx.l_pac
     B = batch.n
     widths = batch_widths(opt, batch.codes.shape[1])
     lens = np.asarray(batch.lens[:B], dtype=np.int64)
-    cnt = np.diff(bounds)
-    j0 = bounds[:-1]
-    j0s = np.minimum(j0, max(len(fields["score"]) - 1, 0))
-    first_score = np.where(cnt > 0, fields["score"][j0s], -1)
-
-    simple = cnt == 1
-    unmapped = (cnt == 0) | (simple & (first_score < opt.T))
-
-    # geometric eligibility of the flat path for simple reads
-    s_rows = np.flatnonzero(simple & (first_score >= opt.T))
-    if s_rows.size:
-        j = j0[s_rows]
-        rb_, re_, qb_, qe_ = (fields["rb"][j], fields["re"][j],
-                              fields["qb"][j], fields["qe"][j])
-        ok = flat_geom(qe_ - qb_, re_ - rb_, rb_, re_, l_pac, widths)
-        flat_rows = s_rows[ok]
-    else:
-        flat_rows = s_rows
-
-    # multi-region reads: columnar dedup/mark fast case
-    multi_rows = np.flatnonzero(cnt >= 2)
-    mres = None
-    m_rec = np.array([], np.int64)     # reads emitting a flat record
-    if multi_rows.size:
-        mres = classify_multi(opt, fields, bounds, multi_rows, read_id0,
-                              l_pac, widths)
-        m_unmap = multi_rows[mres["good"] & mres["unmap"]]
-        m_rec = multi_rows[mres["good"] & ~mres["unmap"]]
-        m_bad = multi_rows[~mres["good"]]
-        unmapped_multi = m_unmap
-    else:
-        unmapped_multi = np.array([], np.int64)
-        m_bad = np.array([], np.int64)
+    sel = select_se(opt, fields, bounds, read_id0, idx.l_pac, widths)
+    tier = sel["tier"]
 
     out: list[str] = [""] * B
-
-    # ---------------------------------------------------- unmapped ----
-    for b in np.concatenate([np.flatnonzero(unmapped), unmapped_multi]):
-        b = int(b)
+    for b in np.flatnonzero(tier == UNMAPPED).tolist():
         q = batch.quals[b] or "*"
         out[b] = (f"{batch.names[b]}\t4\t*\t0\t0\t*\t*\t0\t0\t"
                   f"{batch.seqs[b]}\t{q}\n")
 
-    # ------------------------------------------ lanes -> flat core ----
-    if codes_dev is None:
-        codes_dev = aligner._put(np.asarray(batch.codes, np.int32))
-    N1 = flat_rows.size
-    if mres is not None and m_rec.size:
-        sel = mres["good"] & ~mres["unmap"]
-        pj = mres["prim_j"][sel]
-        m_sub = mres["sub"][sel]
-        m_sub_n = mres["sub_n"][sel]
-        m_alt_cnt = mres["alt_cnt"][sel]
-        alt_j = mres["alt_j"]
-    else:
-        pj = np.array([], np.int64)
-        m_sub = m_sub_n = m_alt_cnt = np.array([], np.int64)
-        alt_j = np.array([], np.int64)
-    N2 = pj.size
-    N3 = alt_j.size
-    NL = N1 + N2 + N3
-    gen_rows = [int(b) for b in m_bad]
-    if NL:
-        j_lanes = np.concatenate(
-            [j0[flat_rows], pj, alt_j]).astype(np.int64)
-        alt_read = np.repeat(m_rec, m_alt_cnt) if N3 else \
-            np.array([], np.int64)
-        b_lanes = np.concatenate([flat_rows, m_rec, alt_read]
-                                 ).astype(np.int64)
-        rb = fields["rb"][j_lanes].astype(np.int64)
-        re = fields["re"][j_lanes].astype(np.int64)
-        qb = fields["qb"][j_lanes].astype(np.int64)
-        qe = fields["qe"][j_lanes].astype(np.int64)
-        truesc = fields["truesc"][j_lanes].astype(np.int64)
-        aw = fields["w"][j_lanes].astype(np.int64)
-        core = flat_core(aligner, codes_dev, b_lanes, lens[b_lanes], rb,
-                         re, qb, qe, truesc, aw, widths)
-
+    # ---- flat lanes: every flat read's primary in read order, then the
+    # XA alternates ----
+    flat = np.flatnonzero(tier == FLAT)
+    gen = tier == GENERATOR
+    N = flat.size
+    rec = None
+    if N:
+        if codes_dev is None:
+            codes_dev = aligner._put(np.asarray(batch.codes, np.int32))
+        pj = sel["prim"][flat]
+        acnt = sel["alt_cnt"][flat]
+        alt_off = np.cumsum(acnt) - acnt
+        j_lanes = np.concatenate([pj, sel["alt_rows"]])
+        b_lanes = np.concatenate([flat, np.repeat(flat, acnt)])
+        core = flat_core(aligner, codes_dev, b_lanes, lens[b_lanes],
+                         *(fields[f][j_lanes].astype(np.int64)
+                           for f in ("rb", "re", "qb", "qe", "truesc", "w")),
+                         widths)
         # GA cigar-pack overflow: fail the whole READ to the generators
-        okl = core["ok"]
-        alt_base = N1 + N2 + np.concatenate(
-            [[0], np.cumsum(m_alt_cnt)])[:-1] if N2 else np.array([], int)
-        rec_ok = np.ones(N1 + N2, bool)
-        rec_ok[:N1] = okl[:N1]
-        for k in range(N2):
-            lo, hi = int(alt_base[k]), int(alt_base[k] + m_alt_cnt[k])
-            rec_ok[N1 + k] = okl[N1 + k] and bool(okl[lo:hi].all())
-        # records (ascending output row b)
-        rec_b = np.concatenate([flat_rows, m_rec])
-        rec_lane = np.arange(N1 + N2, dtype=np.int64)
-        score_l = fields["score"][j_lanes].astype(np.int64)
-        frac_l = fields["frac_rep"][j_lanes]
-        sub_col = np.concatenate([np.zeros(N1, np.int64), m_sub])
-        sub_n_col = np.concatenate([np.zeros(N1, np.int64), m_sub_n])
-        mapq = mapq_se_vec(
-            opt, core["lq"][: N1 + N2], core["rlen"][: N1 + N2],
-            score_l[: N1 + N2], frac_l[: N1 + N2], sub_col,
-            np.zeros(N1 + N2, np.int64), sub_n_col)
-        alt_lo = np.zeros(N1 + N2, np.int64)
-        alt_hi = np.zeros(N1 + N2, np.int64)
-        if N2:
-            alt_lo[N1:] = alt_base
-            alt_hi[N1:] = alt_base + m_alt_cnt
-        bad_rec = np.flatnonzero(~rec_ok)
-        gen_rows.extend(int(rec_b[r]) for r in bad_rec)
-        keep_r = rec_ok
-        order = np.argsort(rec_b[keep_r], kind="stable")
+        ok = records_ok(core["ok"], N, alt_off, acnt)
+        gen[flat[~ok]] = True
+        score = fields["score"][pj].astype(np.int64)
+        sub = sel["sub"][flat]
+        mapq = mapq_se_vec(opt, core["lq"][:N], core["rlen"][:N], score,
+                           fields["frac_rep"][pj], sub,
+                           np.zeros(N, np.int64), sel["sub_n"][flat])
+        n_ok = int(ok.sum())
         rec = dict(
-            b=rec_b[keep_r][order],
-            lane=rec_lane[keep_r][order],
-            flag=np.where(core["rev"][: N1 + N2][keep_r][order], 16,
-                          0).astype(np.int32),
-            mapq=mapq[keep_r][order],
-            score=score_l[: N1 + N2][keep_r][order],
-            xs=sub_col[keep_r][order],
-            rnext=np.full(int(keep_r.sum()), -1, np.int32),
-            pnext=np.zeros(int(keep_r.sum()), np.int64),
-            tlen=np.zeros(int(keep_r.sum()), np.int64),
-            alt_lo=alt_lo[keep_r][order],
-            alt_hi=alt_hi[keep_r][order])
-    else:
-        core = rec = None
+            b=flat[ok], lane=np.flatnonzero(ok),
+            flag=np.where(core["rev"][:N][ok], 16, 0).astype(np.int32),
+            mapq=mapq[ok], score=score[ok], xs=sub[ok],
+            rnext=np.full(n_ok, -1, np.int32),
+            pnext=np.zeros(n_ok, np.int64), tlen=np.zeros(n_ok, np.int64),
+            alt_lo=(N + alt_off)[ok], alt_hi=(N + alt_off + acnt)[ok])
 
-    # ------------------------------------------- generator fallback ----
-    flat_set = np.zeros(B, bool)
-    flat_set[flat_rows] = True
-    flat_set[m_rec] = True
-    if unmapped_multi.size:
-        flat_set[unmapped_multi] = True
-    complex_rows = np.flatnonzero(~unmapped & ~flat_set)
-    gen_rows.extend(int(b) for b in complex_rows)
-    gen_rows = sorted(set(int(b) for b in gen_rows))
+    # ---- generator tier ----
+    gen_rows = np.flatnonzero(gen).tolist()
     count(aligner.timers, "sam.generator_reads", len(gen_rows))
     if gen_rows:
         gens = [
             finalize.se_records_g(
                 opt, idx, batch.names[b], batch.seqs[b], batch.quals[b],
                 batch.codes[b, : batch.lens[b]],
-                _alnregs_for(fields, bounds, int(b)), read_id0 + int(b))
+                read_regions(fields, bounds, b), read_id0 + b)
             for b in gen_rows
         ]
         for b, recs in zip(gen_rows,
@@ -864,18 +594,3 @@ def se_text_batch(aligner, batch, read_id0: int, fields: dict,
         return "".join(out)
     return emit_flat(aligner, batch.names[:B], batch.seqs[:B],
                      batch.quals[:B], out, core, rec)
-
-
-def _alnregs_for(fields: dict, bounds: np.ndarray, b: int):
-    """Materialize AlnReg objects for one read (complex-path fallback)."""
-    regs = []
-    for i in range(int(bounds[b]), int(bounds[b + 1])):
-        regs.append(AlnReg(
-            rb=int(fields["rb"][i]), re=int(fields["re"][i]),
-            qb=int(fields["qb"][i]), qe=int(fields["qe"][i]),
-            rid=int(fields["rid"][i]), score=int(fields["score"][i]),
-            truesc=int(fields["truesc"][i]), w=int(fields["w"][i]),
-            seedcov=int(fields["seedcov"][i]),
-            seedlen0=int(fields["seedlen0"][i]),
-            frac_rep=float(fields["frac_rep"][i])))
-    return regs

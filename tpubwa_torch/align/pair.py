@@ -30,7 +30,7 @@ from tpubwa_torch.align.region import AlnReg
 from tpubwa_torch.config import NARROW, MemOptions, batch_widths
 from tpubwa_torch.index.fmindex import FMIndex
 from tpubwa_torch.io import sam as samio
-from tpubwa_torch.native import load_native
+from tpubwa_torch.native import as_ptr, load_native
 from tpubwa_torch.ops.localsw_cuda import localsw_core
 from tpubwa_torch.utils.rounds import drive_rounds
 from tpubwa_torch.utils.timers import count
@@ -601,7 +601,7 @@ def pair_terms(opt: MemOptions, pes: list[PEStat]):
 def select_flat(opt: MemOptions, idx: FMIndex, cols: dict,
                 pes: list[PEStat], pair_id0: int, widths) -> dict:
     """The flat tier's pair selection for a batch's ``region_columns``,
-    in one native call (``native/pesel.cpp``): mark_primary on each end,
+    in one native call (``native/flatsel.cpp``): mark_primary on each end,
     mem_pair, and the test that keeps a pair flat (no second primary,
     both primaries >= T, every emitted lane in the flat windows of
     `widths`, XA groups after the ratio filter and the max_XA_hits cap).
@@ -610,8 +610,6 @@ def select_flat(opt: MemOptions, idx: FMIndex, cols: dict,
     ``flat``, ``o``, ``subo``, ``n_sub``, ``proper``; by end (2i + e)
     ``z``, ``pick`` (the emitted region's row), ``sub_eff``,
     ``subn_eff``, ``alt_cnt``; ``alt_rows``, the XA alternates' rows."""
-    import ctypes as c
-
     lib = load_native()
     fields = ("rb", "re", "qb", "qe", "rid", "score", "sub_n")
     bounds = np.ascontiguousarray(cols["bounds"], np.int64)
@@ -633,20 +631,16 @@ def select_flat(opt: MemOptions, idx: FMIndex, cols: dict,
     low = np.array([p.low for p in pes], np.int64)
     high = np.array([p.high for p in pes], np.int64)
     tmp = max(opt.a + opt.b, opt.o_del + opt.e_del, opt.o_ins + opt.e_ins)
-    p = lambda a: a.ctypes.data_as(  # noqa: E731
-        c.POINTER({np.int64: c.c_int64, np.int32: c.c_int32,
-                   np.uint8: c.c_uint8, np.float64: c.c_double}[
-                       a.dtype.type]))
     rc = lib.pe_select_flat(
-        B, p(bounds), *(p(ins[f]) for f in fields),
-        p(offs), offs.size, idx.l_pac, opt.mask_level, tmp, opt.T,
+        B, as_ptr(bounds), *(as_ptr(ins[f]) for f in fields),
+        as_ptr(offs), offs.size, idx.l_pac, opt.mask_level, tmp, opt.T,
         opt.pen_unpaired, opt.XA_drop_ratio, opt.max_XA_hits,
-        widths.sam_q, widths.sam_t, p(failed), p(low), p(high),
-        p(tab_off), p(tab), pair_id0,
-        *(p(out[k]) for k in ("order", "sec", "sub", "sub_n", "flat", "o",
-                              "subo", "n_sub", "proper", "z", "pick",
-                              "sub_eff", "subn_eff", "alt_cnt",
-                              "alt_rows")))
+        widths.sam_q, widths.sam_t, as_ptr(failed), as_ptr(low),
+        as_ptr(high), as_ptr(tab_off), as_ptr(tab), pair_id0,
+        *(as_ptr(out[k]) for k in ("order", "sec", "sub", "sub_n", "flat",
+                                   "o", "subo", "n_sub", "proper", "z",
+                                   "pick", "sub_eff", "subn_eff",
+                                   "alt_cnt", "alt_rows")))
     if rc == -1:
         raise ValueError("mem_pair: an insert-size term is not finite "
                          "(a direction's model has std 0)")
@@ -725,12 +719,8 @@ def pe_sam_text(aligner, b1, b2, pair_id0: int, pairs, pes,
         core1 = run_core(codes_dev2, b2.lens, c1, rows1)
 
         # pair ok = every lane (both primaries + all alternates) packed
-        def alts_ok(core, cc):
-            n_bad = np.concatenate([[0], np.cumsum(~core["ok"][N:])])
-            return n_bad[cc["off"] + cc["acnt"]] == n_bad[cc["off"]]
-
-        okp = (core0["ok"][:N] & core1["ok"][:N] & alts_ok(core0, c0)
-               & alts_ok(core1, c1))
+        okp = (flatsam.records_ok(core0["ok"], N, c0["off"], c0["acnt"])
+               & flatsam.records_ok(core1["ok"], N, c1["off"], c1["acnt"]))
         keep[flat[okp]] = True
 
     rest = np.flatnonzero(~keep).tolist()

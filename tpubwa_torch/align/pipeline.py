@@ -29,7 +29,8 @@ import tpubwa_torch
 from tpubwa_torch.align import finalize, flatext, flatsam
 from tpubwa_torch.align.chain import chain_filter_batch_native
 from tpubwa_torch.align.cigar_batch import GABatchExecutor
-from tpubwa_torch.align.region import extend_read, run_extension_rounds
+from tpubwa_torch.align.region import (extend_read, read_regions,
+                                       run_extension_rounds)
 from tpubwa_torch.config import WIDE, MemOptions, batch_widths
 from tpubwa_torch.index.fmindex import FMIndex
 from tpubwa_torch.io.fastq import stream_batches
@@ -338,7 +339,7 @@ class Aligner:
         """Seed + chain + extend a ReadBatch; returns list[list[AlnReg]]."""
         fields, fbounds = self._regions_flat(batch, seed_handle=seed_handle)
         with self.timers.phase("REGS"):
-            return [flatsam._alnregs_for(fields, fbounds, b)
+            return [read_regions(fields, fbounds, b)
                     for b in range(batch.n)]
 
     # ------------------------------------------------ full batch ----

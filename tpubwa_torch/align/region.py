@@ -52,6 +52,20 @@ class AlnReg:
     hash: int = 0
 
 
+def read_regions(fields: dict, bounds: np.ndarray, b: int) -> list[AlnReg]:
+    """Read b's regions as ``AlnReg`` objects, from the region columns of
+    ``flatext.finalize_fields`` (its regions are rows
+    [bounds[b], bounds[b + 1]))."""
+    return [AlnReg(rb=int(fields["rb"][i]), re=int(fields["re"][i]),
+                   qb=int(fields["qb"][i]), qe=int(fields["qe"][i]),
+                   rid=int(fields["rid"][i]), score=int(fields["score"][i]),
+                   truesc=int(fields["truesc"][i]), w=int(fields["w"][i]),
+                   seedcov=int(fields["seedcov"][i]),
+                   seedlen0=int(fields["seedlen0"][i]),
+                   frac_rep=float(fields["frac_rep"][i]))
+            for i in range(int(bounds[b]), int(bounds[b + 1]))]
+
+
 @dataclasses.dataclass
 class SeedExtJob:
     """One whole-seed extension: left (reversed) + right halves, fused into

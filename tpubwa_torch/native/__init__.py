@@ -1,1 +1,1 @@
-from tpubwa_torch.native.build import load_native  # noqa: F401
+from tpubwa_torch.native.build import as_ptr, load_native  # noqa: F401

@@ -1,8 +1,8 @@
 """Build and load the port's native host library.
 
 The C++ sources in this directory (SA-IS index construction, seed
-chaining (``chain.cpp``), the extension replay, SAM assembly, the PE
-flat tier's pair selection (``pesel.cpp``); ``core.h``
+chaining (``chain.cpp``), the extension replay, SAM assembly, the flat
+tier's SE and PE selection (``flatsel.cpp``); ``core.h``
 holds what chaining and the replay share) compile into one shared
 library with a plain C interface, loaded via ctypes.  ``load_native``
 compiles them with g++ (``GXX``) at first use into ``build/tpubwa_torch/``,
@@ -25,6 +25,15 @@ _DIR = Path(__file__).resolve().parent
 GXX = "g++"
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 _lib = None
+
+
+def as_ptr(a):
+    """A ctypes pointer to a contiguous int64, int32, uint8 or float64
+    numpy array's data (the caller keeps the array alive)."""
+    c = ctypes
+    return a.ctypes.data_as(c.POINTER(
+        {"int64": c.c_int64, "int32": c.c_int32, "uint8": c.c_uint8,
+         "float64": c.c_double}[a.dtype.name]))
 
 
 def _sources() -> list[Path]:
@@ -163,4 +172,19 @@ def _declare(lib) -> None:
         u8p, i64p, i64p, i64p,          # flat, o, subo, n_sub
         u8p, i64p, i64p,                # proper, z, pick
         i64p, i64p, i64p, i64p,         # sub_eff, subn_eff, alt_cnt, alts
+    ]
+
+    lib.se_select_flat.restype = c.c_int64
+    lib.se_select_flat.argtypes = [
+        c.c_int64, i64p,                # B reads, bounds [B + 1]
+        i64p, i64p, i64p, i64p,         # rb, re, qb, qe
+        i64p, i64p,                     # rid, score
+        c.c_int64, c.c_double,          # l_pac, mask_level
+        c.c_int64, c.c_int64,           # tmp, T
+        c.c_double, c.c_int64,          # XA_drop_ratio, max_XA_hits
+        c.c_int64,                      # max_chain_gap
+        c.c_int64, c.c_int64,           # sam_q, sam_t
+        c.c_int64,                      # read_id0
+        u8p, i64p, i64p, i64p,          # tier, prim, sub, sub_n
+        i64p, i64p,                     # alt_cnt, alt_rows
     ]

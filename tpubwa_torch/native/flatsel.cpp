@@ -1,20 +1,23 @@
-// Paired-end flat-tier pair selection for a whole read batch in one call:
-// mark_primary on both ends, mem_pair, and the test that keeps a pair on
-// the flat tier of pe_sam_text.
+// The flat tier's selection for a whole read batch in one call, single
+// end (se_select_flat) and paired end (pe_select_flat): sort_dedup's
+// exact-duplicate drop (SE), mark_primary, mem_pair (PE), the XA group
+// and the test that keeps a read or a pair on the flat tier of
+// align/flatsam.py::se_text_batch / align/pair.py::pe_sam_text.
 //
 // Exact re-implementation of align/finalize.py::mark_primary (bwa-mem's
-// mem_mark_primary_se), align/pair.py::mem_pair (mem_pair) and the
-// selection that align/pair.py::pe_sam_text made pair by pair in Python.
-// The Python functions remain the reference and the generator tier's
-// code; tests/test_torch_pe_select.py pins this code to them with
-// exact-equality tests.
+// mem_mark_primary_se), align/pair.py::mem_pair (mem_pair) and gen_xa_g's
+// ratio filter and count cap.  The Python functions remain the reference
+// and the generator tier's code; tests/test_torch_pe_select.py and
+// tests/test_torch_se_select.py pin this code to them with exact-equality
+// tests.
 //
-// Regions arrive as CSR columns over 2B ends, pair i's ends at 2i and
-// 2i + 1, each end's regions in the order of its list.  Nothing here
-// computes a float beyond what Python computes: the insert-size term of
-// mem_pair is tabulated by the caller over [low, high] of each direction
-// with Python's own math.erfc / math.log, and the pair score is
-// (double)(s_i + s_k) + term + 0.499, truncated, Python's order.
+// Regions arrive as CSR columns: SE over B reads, PE over 2B ends, pair
+// i's ends at 2i and 2i + 1, each read's or end's regions in the order
+// of its list.  Nothing here computes a float beyond what Python
+// computes: the insert-size term of mem_pair is tabulated by the caller
+// over [low, high] of each direction with Python's own math.erfc /
+// math.log, and the pair score is (double)(s_i + s_k) + term + 0.499,
+// truncated, Python's order.
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
@@ -198,6 +201,52 @@ inline bool flat_geom(const Sel& o, int64_t rb, int64_t re, int64_t qb,
            && !(rb < o.l_pac && o.l_pac < re);
 }
 
+// XA group k of one marked read or end (sorted positions [beg, beg + n),
+// CSR rows order[beg + p]), gen_xa_g's ratio filter, then its count cap:
+// the regions shadowed by k that score at least XA_drop_ratio of k's,
+// appended in sorted order at alt_rows + n_alt, or none when more than
+// max_XA_hits pass.  Returns the new count; `fits` is false when an
+// appended lane is outside the flat windows.
+int64_t xa_group(const Sel& o, const int64_t* rb, const int64_t* re,
+                 const int64_t* qb, const int64_t* qe, const int64_t* score,
+                 const int64_t* order, const int32_t* sec, int64_t beg,
+                 int64_t n, int64_t k, int64_t* alt_rows, int64_t n_alt,
+                 bool& fits) {
+    const double thr = (double)score[order[beg + k]] * o.xa_drop_ratio;
+    const int64_t a_lo = n_alt;
+    for (int64_t j = 0; j < n; j++) {
+        const int64_t pj = beg + j;
+        if (sec[pj] == k && (double)score[order[pj]] >= thr)
+            alt_rows[n_alt++] = order[pj];
+    }
+    if (n_alt - a_lo > o.max_xa_hits) n_alt = a_lo;
+    fits = true;
+    for (int64_t t = a_lo; t < n_alt && fits; t++) {
+        const int64_t r = alt_rows[t];
+        fits = flat_geom(o, rb[r], re[r], qb[r], qe[r]);
+    }
+    return n_alt;
+}
+
+// sort_dedup's redundancy / patch loop would run on a read's regions
+// [r0, r0 + n): two neighbours in re order (stable) on one contig, the
+// later starting before the earlier's re + max_chain_gap.
+bool patch_would_run(const int64_t* rb, const int64_t* re,
+                     const int64_t* rid, int64_t r0, int64_t n,
+                     int64_t max_chain_gap, std::vector<int64_t>& perm) {
+    perm.resize(n);
+    for (int64_t i = 0; i < n; i++) perm[i] = r0 + i;
+    std::stable_sort(perm.begin(), perm.end(),
+                     [&](int64_t a, int64_t b) { return re[a] < re[b]; });
+    for (int64_t i = 1; i < n; i++) {
+        const int64_t a = perm[i - 1], b = perm[i];
+        if (rid[a] == rid[b] && rb[b] < re[a] + max_chain_gap) return true;
+    }
+    return false;
+}
+
+enum : uint8_t { SE_UNMAPPED = 0, SE_FLAT = 1, SE_GENERATOR = 2 };
+
 }  // namespace
 
 extern "C" {
@@ -289,19 +338,11 @@ int64_t pe_select_flat(
             const int64_t k = proper ? po.z[e] : 0;
             const int64_t c = order[beg[e] + k];
             if (!flat_geom(o, rb[c], re[c], qb[c], qe[c])) { bad = true; break; }
-            // XA group k (gen_xa_g: ratio filter, then count cap)
-            const double thr = (double)score[c] * o.xa_drop_ratio;
             const int64_t a_lo = n_alt;
-            for (int64_t j = 0; j < cnt[e]; j++) {
-                const int64_t pj = beg[e] + j;
-                if (sec[pj] == k && (double)score[order[pj]] >= thr)
-                    alt_rows[n_alt++] = order[pj];
-            }
-            if (n_alt - a_lo > o.max_xa_hits) n_alt = a_lo;
-            for (int64_t t = a_lo; t < n_alt && !bad; t++) {
-                const int64_t r = alt_rows[t];
-                bad = !flat_geom(o, rb[r], re[r], qb[r], qe[r]);
-            }
+            bool fits;
+            n_alt = xa_group(o, rb, re, qb, qe, score, order, sec, beg[e],
+                             cnt[e], k, alt_rows, n_alt, fits);
+            bad = !fits;
             const int64_t sc = sec[beg[e] + k];
             pick[2 * i + e] = c;
             sub_eff[2 * i + e] =
@@ -319,6 +360,121 @@ int64_t pe_select_flat(
             continue;
         }
         flat[i] = 1;
+    }
+    return n_alt;
+}
+
+// Select the flat tier's reads of an SE batch.
+//
+//   bounds      [B + 1] int64: read b's regions are rows
+//               [bounds[b], bounds[b + 1])
+//   rb, re, qb, qe, rid, score   [n_regs] int64 region columns
+//   read_id0    read b's id is read_id0 + b
+// Outputs by read (B):
+//   tier     SE_UNMAPPED, SE_FLAT or SE_GENERATOR:
+//            0 regions: unmapped;
+//            1 region: unmapped under T, else flat where it fits the
+//            flat windows, else generator;
+//            2 or more: generator where sort_dedup's patch loop would
+//            run; else sorted by (-score, rb, qb), exact duplicates
+//            dropped, marked (mark_primary, sub_n from 0): generator on
+//            a second primary or a primary or XA lane outside the
+//            windows, else unmapped under T, else flat
+//   prim     the primary's CSR row where flat (-1 elsewhere)
+//   sub, sub_n   its mark_primary sub and sub_n where flat (0 elsewhere)
+//   alt_cnt  its XA alternates where flat, whose CSR rows fill alt_rows
+//            in read and sorted order (n_regs rows are always enough)
+// Returns the number of alternate rows.
+int64_t se_select_flat(
+    int64_t B, const int64_t* bounds,
+    const int64_t* rb, const int64_t* re, const int64_t* qb,
+    const int64_t* qe, const int64_t* rid, const int64_t* score,
+    int64_t l_pac, double mask_level, int64_t tmp, int64_t T,
+    double xa_drop_ratio, int64_t max_xa_hits, int64_t max_chain_gap,
+    int64_t sam_q, int64_t sam_t, int64_t read_id0,
+    uint8_t* tier, int64_t* prim, int64_t* sub_out, int64_t* subn_out,
+    int64_t* alt_cnt, int64_t* alt_rows) {
+    Sel o{0, l_pac, nullptr, mask_level, tmp, T, 0, xa_drop_ratio,
+          max_xa_hits, sam_q, sam_t, nullptr, nullptr, nullptr, nullptr,
+          nullptr};
+    std::vector<uint64_t> hash;
+    std::vector<int64_t> perm, zl, keep, cqb, cqe, csc, zero, corder, sub,
+        subn, rows;
+    std::vector<int32_t> sec;
+    int64_t n_alt = 0;
+    for (int64_t b = 0; b < B; b++) {
+        const int64_t r0 = bounds[b], n = bounds[b + 1] - r0;
+        tier[b] = SE_GENERATOR;
+        prim[b] = -1;
+        sub_out[b] = subn_out[b] = alt_cnt[b] = 0;
+        if (n == 0) {
+            tier[b] = SE_UNMAPPED;
+            continue;
+        }
+        if (n == 1) {
+            if (score[r0] < T) {
+                tier[b] = SE_UNMAPPED;
+            } else if (flat_geom(o, rb[r0], re[r0], qb[r0], qe[r0])) {
+                tier[b] = SE_FLAT;
+                prim[b] = r0;
+            }
+            continue;
+        }
+        if (patch_would_run(rb, re, rid, r0, n, max_chain_gap, perm))
+            continue;
+        // sort_dedup's final order and its exact-duplicate drop
+        for (int64_t i = 0; i < n; i++) perm[i] = r0 + i;
+        std::stable_sort(perm.begin(), perm.end(), [&](int64_t a, int64_t c) {
+            if (score[a] != score[c]) return score[a] > score[c];
+            if (rb[a] != rb[c]) return rb[a] < rb[c];
+            return qb[a] < qb[c];
+        });
+        keep.clear();
+        for (int64_t p = 0; p < n; p++) {
+            const int64_t r = perm[p], q = p ? perm[p - 1] : -1;
+            if (p == 0 || score[r] != score[q] || rb[r] != rb[q]
+                || qb[r] != qb[q])
+                keep.push_back(r);
+        }
+        const int64_t m = (int64_t)keep.size();
+        cqb.resize(m);
+        cqe.resize(m);
+        csc.resize(m);
+        for (int64_t i = 0; i < m; i++) {
+            cqb[i] = qb[keep[i]];
+            cqe[i] = qe[keep[i]];
+            csc[i] = score[keep[i]];
+        }
+        zero.assign(m, 0);
+        corder.resize(m);
+        sec.resize(m);
+        sub.resize(m);
+        subn.resize(m);
+        mark_end(o, cqb.data(), cqe.data(), csc.data(), zero.data(), 0, m,
+                 (uint64_t)read_id0 + (uint64_t)b, hash, perm, zl,
+                 corder.data(), sec.data(), sub.data(), subn.data());
+        bool multi = false;                 // a second primary
+        for (int64_t p = 1; p < m && !multi; p++) multi = sec[p] < 0;
+        if (multi) continue;
+        rows.resize(m);
+        for (int64_t p = 0; p < m; p++) rows[p] = keep[corder[p]];
+        const int64_t c = rows[0];
+        if (!flat_geom(o, rb[c], re[c], qb[c], qe[c])) continue;
+        const int64_t a_lo = n_alt;
+        bool fits;
+        n_alt = xa_group(o, rb, re, qb, qe, score, rows.data(), sec.data(),
+                         0, m, 0, alt_rows, n_alt, fits);
+        if (!fits || score[c] < T) {
+            // gen_xa's lanes of an unmapped read are not emitted
+            n_alt = a_lo;
+            if (fits) tier[b] = SE_UNMAPPED;
+            continue;
+        }
+        tier[b] = SE_FLAT;
+        prim[b] = c;
+        sub_out[b] = sub[0];
+        subn_out[b] = subn[0];
+        alt_cnt[b] = n_alt - a_lo;
     }
     return n_alt;
 }

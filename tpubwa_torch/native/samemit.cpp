@@ -16,7 +16,8 @@
 // Rows without records copy the caller's pre-rendered `other` text.
 //
 // Returns the total byte count (may exceed out_cap — caller re-invokes
-// with a larger buffer; emission costs ~nothing to repeat).
+// with a larger buffer; emission costs ~nothing to repeat), or -1 - r
+// when record r's MD string overflows its buffer.
 #include <cstdint>
 #include <cstring>
 
@@ -261,12 +262,16 @@ extern "C" int64_t sam_emit_se(
             ob.put(qu, ql);
         }
         // --- NM / MD / AS / XS ---
+        // MD writes at most 2 characters a reference base (a letter and
+        // the run before it, "0A" at worst; a run of k matched bases
+        // writes at most k digits) and 2 more a deletion ("0^"): under
+        // 900 for a lane of WIDE's 384-base window with GA_K 24
+        // segments + 2 squeezed deletions.
         uint8_t mdbuf[4096];
         Buf md{mdbuf, (int64_t)sizeof(mdbuf), 0};
         const int64_t nm = lane_nm_md(L, i, &md);
-        if (md.n > md.cap) return -1;  // MD overflow: silent truncation
-        //   would corrupt output — sentinel makes the caller fall back
-        //   to the Python emitter (ADVICE r4)
+        if (md.n > md.cap) return -1 - r;  // truncating would corrupt the
+        //   line: the caller raises, naming record r
         ob.putc('\t');
         ob.put((const uint8_t*)"NM:i:", 5);
         ob.put_int(nm);

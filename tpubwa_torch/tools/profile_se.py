@@ -25,9 +25,10 @@ Then the batch once as the aligner runs it: ``seed_batch_dispatch``
 the extension waves (``flatext.run_phased``, as ``Aligner._regions_flat``
 runs them; each round calls ``run_waves``); native ``finalize_fields``;
 flat SAM (``flatsam.se_text_batch``).  Inside flat SAM: the device
-windows of the single-region reads the flat tier takes (best of 3) and
-their download, and K3's time (``flatsam._ga_rows`` wrapped, synchronised
-on both sides) in a second flat SAM; the host time left is what remains.
+windows of the primaries of the reads the flat tier takes
+(``flatsam.select_se``; best of 3) and their download, and K3's time
+(``flatsam._ga_rows`` wrapped, synchronised on both sides) in a second
+flat SAM; the host time left is what remains.
 Both flat SAM texts must equal ``Aligner.align_se_text(batch, 0)``, or
 the tool raises.
 
@@ -163,19 +164,11 @@ def profile(ref_mb: float, style: str, device,
     print(f"  flatsam {ms['flatsam']:.0f}ms  ({len(text)} bytes)")
 
     # ---- inside flat SAM: the flat tier's windows, K3, the host ----
-    cnt = np.diff(fbounds)
-    j0 = fbounds[:-1]
-    j0s = np.minimum(j0, max(len(fields["score"]) - 1, 0))
-    first_score = np.where(cnt > 0, fields["score"][j0s], -1)
-    s_rows = np.flatnonzero((cnt == 1) & (first_score >= opt.T))
-    jj = j0[s_rows]
-    ok = flatsam.flat_geom(fields["qe"][jj] - fields["qb"][jj],
-                           fields["re"][jj] - fields["rb"][jj],
-                           fields["rb"][jj], fields["re"][jj], idx.l_pac, wd)
-    flat_rows = s_rows[ok]
+    sel = flatsam.select_se(opt, fields, fbounds, 0, idx.l_pac, wd)
+    flat_rows = np.flatnonzero(sel["tier"] == flatsam.FLAT)
     N = flat_rows.size
-    print(f"  [flat classification: {N} flat, {B - N} complex/unmapped]")
-    jf = j0[flat_rows]
+    print(f"  [flat classification: {N} flat, {B - N} generator/unmapped]")
+    jf = sel["prim"][flat_rows]
     rb = fields["rb"][jf].astype(np.int64)
     qb = fields["qb"][jf].astype(np.int64)
     lq = fields["qe"][jf].astype(np.int64) - qb

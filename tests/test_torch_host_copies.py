@@ -199,8 +199,8 @@ def test_failed_native_build_raises(tmp_path, monkeypatch, fault):
     assert "-O3" in calls[0] and "-march=native" in calls[0]
     assert sorted(os.path.basename(a) for a in calls[0]
                   if a.endswith(".cpp")) == ["chain.cpp", "extension.cpp",
-                                             "flatsel.cpp", "sais.cpp",
-                                             "samemit.cpp"]
+                                             "flatsel.cpp", "rescue.cpp",
+                                             "sais.cpp", "samemit.cpp"]
     if fault == "fails":
         assert os.listdir(tmp_path / "b") == []
     assert nbuild._lib is None

@@ -95,7 +95,7 @@ def recorded_widths():
             lambda a, k: seen["ext_q"].add(k["q_pad"]),
         (flatsam, "_flat_windows"):
             lambda a, k: seen["sam"].add((k["q_pad"], k["t_win"])),
-        (pair, "run_matesw_rounds"):
+        (pair, "rescue_batch"):
             lambda a, k: seen["rescue"].add((k["q_pad"], k["t_pad"])),
     }
     orig = {key: getattr(*key) for key in wraps}

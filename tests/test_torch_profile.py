@@ -85,8 +85,8 @@ def test_profile_pe_batch_equals_jax(tmp_path, small, capsys):
     out = capsys.readouterr().out
     assert "warm batch:" in out and "Ordered by: cumulative time" in out
     assert set(rec["h1_cum_s"]) == set(rec["h1_share"]) == {
-        "pestat", "matesw_gen", "run_matesw_rounds", "mem_pair",
-        "pe_sam_text", "_pe_generator_text"}
+        "pestat", "rescue_batch", "mem_pair", "pe_sam_text",
+        "_pe_generator_text"}
     assert rec["h1_cum_s"]["pe_sam_text"] > 0
     assert rec["h1_cum_s"]["pestat"] > 0
     assert {"SMEM", "BSW", "PAIR", "SAM"} <= set(rec["phases_s"])

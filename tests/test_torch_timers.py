@@ -11,7 +11,9 @@ drivers enter it.
 * The counters against counts taken apart from them: ``bsw.calls`` against
   the calls of ``flatext.run_phased``, ``sam.generator_reads`` against the
   reads ``finalize.se_records_g`` / ``pair.sam_pe_g`` rendered,
-  ``pair.rescue_jobs`` against ``pair.matesw_gen``'s jobs.
+  ``pair.rescue_jobs`` against the anchors of the pairs ``pair.
+  rescue_batch`` was given (its reference ``pair.matesw_gen`` not called),
+  ``pair.rescue_sw`` against the first rescue round's lanes.
 * A tracer with phases only in the Aligner's place; the SAM text with and
   without a profiler recording.
 * The width-bucket counters, each on a run built to trigger it and 0 on
@@ -239,15 +241,31 @@ def runs(tiny):
     from tpubwa_torch.align import finalize, flatext, pair
 
     _, idx, fq, fq1, fq2, _ = tiny
-    seen = {"run_phased": 0, "se_gen": 0, "pe_gen": 0, "matesw": 0}
+    seen = {"run_phased": 0, "se_gen": 0, "pe_gen": 0, "matesw": 0,
+            "anchors": 0, "lanes": 0}
     wrapped = {(flatext, "run_phased"): "run_phased",
                (finalize, "se_records_g"): "se_gen",
-               (pair, "sam_pe_g"): "pe_gen", (pair, "matesw_gen"): "matesw"}
+               (pair, "sam_pe_g"): "pe_gen", (pair, "matesw_gen"): "matesw",
+               (pair, "rescue_batch"): "anchors",
+               (pair, "localsw_core"): "lanes"}
     orig = {k: getattr(*k) for k in wrapped}
+
+    def anchors(opt, pairs):
+        """align_pe_batch's rule: per end, the regions within
+        pen_unpaired of the list's first, at most max_matesw."""
+        return sum(min(sum(r.score >= end[0].score - opt.pen_unpaired
+                           for r in end), opt.max_matesw)
+                   for p in pairs for end in p if end)
 
     def counting(key):
         def f(*a, **k):
-            seen[wrapped[key]] += 1
+            name = wrapped[key]
+            if name == "anchors":
+                seen[name] += anchors(a[0], a[3])
+            elif name == "lanes":
+                seen["lanes"] += a[0].shape[0] * (int(a[6][0]) == 1 << 30)
+            else:
+                seen[name] += 1
             return orig[key](*a, **k)
         return f
 
@@ -307,7 +325,10 @@ def test_generator_reads_are_the_reads_the_generator_tier_rendered(runs,
 
 def test_rescue_jobs_are_the_jobs_pair_built(runs):
     t, _, seen = runs["pe"]
-    assert t.counters["pair.rescue_jobs"] == seen["matesw"] > 0
+    assert t.counters["pair.rescue_jobs"] == seen["anchors"] > 0
+    assert t.counters["pair.rescue_sw"] == seen["lanes"] > 0
+    assert t.counters["pair.rescued"] <= t.counters["pair.rescue_sw"]
+    assert seen["matesw"] == 0        # the main path runs no generator
 
 
 @pytest.mark.parametrize("mode", ["se", "pe"])

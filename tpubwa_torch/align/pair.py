@@ -4,9 +4,10 @@ paired SAM emission (port of ``tpubwa.align.pair``).
 Semantics of bwa-mem's bwamem_pair.c: mem_pestat percentile insert-size
 model per orientation (FF/FR/RF/RR), mem_pair best-pair selection with
 the erfc insert-size log-likelihood term, and mem_matesw mate rescue —
-batched: per-pair rescue generators yield local-SW jobs that
-``run_matesw_rounds`` runs through ``ops.localsw_cuda.localsw_core`` in
-lockstep rounds on the aligner's device.  On a device mesh both ends'
+batched: ``rescue_batch`` builds a batch's rescue jobs natively and runs
+them through ``ops.localsw_cuda.localsw_core`` in two rounds on the
+aligner's device (``matesw_gen`` + ``run_matesw_rounds``, one generator
+an anchor, are its reference).  On a device mesh both ends'
 seeding and extension waves are split over the shards; mate rescue and
 the SAM's CIGAR program run on the mesh's first device.
 
@@ -321,13 +322,7 @@ def run_matesw_rounds(opt: MemOptions, gens: list, mat: torch.Tensor,
             buf[r, q_pad + t_b:] = (nq, nt, job.minsc, job.endsc)
         if cut:
             count(timers, "pair.rescue_truncated", cut)
-        dev_buf = torch.as_tensor(buf, device=mat.device)
-        cols = dev_buf[:, q_pad + t_b:].T
-        res = localsw_core(
-            dev_buf[:, :q_pad], cols[0], dev_buf[:, q_pad:q_pad + t_b],
-            cols[1], mat, cols[2], cols[3], o_del=opt.o_del,
-            e_del=opt.e_del, o_ins=opt.o_ins, e_ins=opt.e_ins)
-        packed = torch.stack(list(res)).cpu().numpy()
+        packed = _rescue_round(opt, buf, q_pad, t_b, mat)
         for r, i in enumerate(idxs):
             tup = (int(packed[0, r]), int(packed[1, r]), int(packed[2, r]),
                    int(packed[3, r]))
@@ -337,6 +332,124 @@ def run_matesw_rounds(opt: MemOptions, gens: list, mat: torch.Tensor,
                 total += e.value or 0
                 live.discard(i)
     return total
+
+
+def _rescue_round(opt: MemOptions, buf: np.ndarray, q_pad: int, t_b: int,
+                  mat: torch.Tensor) -> np.ndarray:
+    """One rescue round on the device of `mat`: one upload of the rows
+    `buf` (query [q_pad] | target [t_b] | qlen tlen minsc endsc) and one
+    [4, B] download of (score, te, qe, score2)."""
+    dev_buf = torch.as_tensor(buf, device=mat.device)
+    cols = dev_buf[:, q_pad + t_b:].T
+    res = localsw_core(
+        dev_buf[:, :q_pad], cols[0], dev_buf[:, q_pad:q_pad + t_b],
+        cols[1], mat, cols[2], cols[3], o_del=opt.o_del,
+        e_del=opt.e_del, o_ins=opt.o_ins, e_ins=opt.e_ins)
+    return torch.stack(list(res)).cpu().numpy()
+
+
+def rescue_batch(opt: MemOptions, idx: FMIndex, pes: list[PEStat], pairs,
+                 b1, b2, mat: torch.Tensor, *, q_pad: int = NARROW.rescue_q,
+                 t_pad: int = NARROW.rescue_t, timers=None) -> int:
+    """Mate rescue for a whole batch: what ``matesw_gen`` over every
+    anchor of every pair, driven by ``run_matesw_rounds``, does, with the
+    same two device rounds.  The region lists of `pairs` are read once
+    into columns; one native call (``native/rescue.cpp``) picks the
+    anchors, runs their skip tests against the lists as they stand, finds
+    each anchor's window and writes the first round's rows; a second
+    builds the second round's rows from the first round's results.  Each
+    rescued region is inserted into its mate's list in job order, before
+    the first region of a lower score.  Counters: ``pair.rescue_jobs``
+    (anchors), ``pair.rescue_sw`` (anchors that ran an SW),
+    ``pair.rescued`` (regions inserted), ``pair.rescue_truncated``.
+    Returns the number of rescue SWs performed."""
+    lib = load_native()
+    cols = region_columns(pairs, ("rb", "rid", "score"))
+    bounds = cols["bounds"]
+    cap = int(np.minimum(np.diff(bounds), opt.max_matesw).sum())
+    if b1.codes.shape[1] != b2.codes.shape[1]:
+        raise ValueError("the two ends of a paired batch differ in width")
+    codes = [np.ascontiguousarray(b.codes, np.uint8) for b in (b1, b2)]
+    lens = [np.ascontiguousarray(b.lens, np.int64) for b in (b1, b2)]
+    if any(c.shape[0] < len(pairs) or n.size < len(pairs)
+           or (n > c.shape[1]).any() for c, n in zip(codes, lens)):
+        raise ValueError("the read batches do not match the pairs: fewer "
+                         "reads, or lengths past their width")
+    offs = np.array([ct.offset for ct in idx.contigs], np.int64)
+    clen = np.array([ct.length for ct in idx.contigs], np.int64)
+    pac = np.ascontiguousarray(idx.pac_words, np.uint32)
+    failed = np.array([p.failed for p in pes], np.uint8)
+    low = np.array([p.low for p in pes], np.int64)
+    high = np.array([p.high for p in pes], np.int64)
+    stride = q_pad + max(t_pad, 256) + 4
+    buf = np.empty(cap * stride, np.int32)
+    job = {k: np.empty(cap, np.int64) for k in ("anchor", "rb", "lms")}
+    rev = np.empty(cap, np.uint8)
+    out = np.zeros(3, np.int64)
+    J = lib.pe_rescue_round1(
+        len(pairs), as_ptr(bounds),
+        *(as_ptr(cols[f]) for f in ("rb", "rid", "score")),
+        as_ptr(failed), as_ptr(low), as_ptr(high), as_ptr(offs),
+        as_ptr(clen), offs.size, idx.l_pac, as_ptr(pac),
+        as_ptr(codes[0]), as_ptr(lens[0]), as_ptr(codes[1]),
+        as_ptr(lens[1]), codes[0].shape[1], opt.pen_unpaired,
+        opt.max_matesw, opt.min_seed_len, opt.min_seed_len * opt.a, q_pad,
+        t_pad, cap, as_ptr(buf), as_ptr(job["anchor"]), as_ptr(job["rb"]),
+        as_ptr(rev), as_ptr(job["lms"]), as_ptr(out))
+    if J < 0:
+        raise RuntimeError("mate rescue: more jobs than anchors")
+    t_b, n_anchors, n_cut = out.tolist()
+    count(timers, "pair.rescue_jobs", n_anchors)
+    count(timers, "pair.rescue_sw", J)
+    if n_cut:
+        count(timers, "pair.rescue_truncated", n_cut)
+    n_hit = 0
+    if J:
+        res = np.ascontiguousarray(
+            _rescue_round(opt, buf[:J * (q_pad + t_b + 4)].reshape(J, -1),
+                          q_pad, t_b, mat), np.int64)
+        buf2 = np.empty(J * stride, np.int32)
+        hits = np.empty(J, np.int64)
+        out2 = np.zeros(1, np.int64)
+        n_hit = lib.pe_rescue_round2(
+            J, as_ptr(buf), q_pad, t_b, as_ptr(res), opt.min_seed_len,
+            t_pad, as_ptr(buf2), as_ptr(hits), as_ptr(out2))
+    count(timers, "pair.rescued", n_hit)
+    if not n_hit:
+        return J
+    t_b2 = int(out2[0])
+    hits = hits[:n_hit]
+    res2 = _rescue_round(opt, buf2[:n_hit * (q_pad + t_b2 + 4)].reshape(
+        n_hit, -1), q_pad, t_b2, mat)
+    sc, te, qe, sc2 = res[:, hits]
+    qb = qe - res2[2]
+    tb = te - res2[1]
+    is_rev = rev[hits].astype(bool)
+    lms, wrb = job["lms"][hits], job["rb"][hits]
+    l2 = idx.l_pac << 1
+    f = dict(
+        qb=np.where(is_rev, lms - (qe + 1), qb),
+        qe=np.where(is_rev, lms - qb, qe + 1),
+        rb=np.where(is_rev, l2 - (wrb + te + 1), wrb + tb),
+        re=np.where(is_rev, l2 - (wrb + tb), wrb + te + 1))
+    f["seedcov"] = np.minimum(f["re"] - f["rb"], f["qe"] - f["qb"]) >> 1
+    anchors = job["anchor"][hits]
+    f.update(rid=cols["rid"][anchors], frac_rep=cols["frac_rep"][anchors],
+             score=sc, csub=sc2)
+    f = {k: v.tolist() for k, v in f.items()}
+    slots = np.searchsorted(bounds, anchors, side="right") - 1
+    ends = [end for p in pairs for end in p]
+    for h, slot in enumerate(slots.tolist()):
+        s = f["score"][h]
+        b = AlnReg(rb=f["rb"][h], re=f["re"][h], qb=f["qb"][h],
+                   qe=f["qe"][h], rid=f["rid"][h], score=s, truesc=s,
+                   csub=f["csub"][h], secondary=-1,
+                   seedcov=f["seedcov"][h], w=opt.w,
+                   frac_rep=f["frac_rep"][h])
+        ma = ends[slot ^ 1]
+        pos = next((k for k, r in enumerate(ma) if r.score < s), len(ma))
+        ma.insert(pos, b)
+    return J
 
 
 # ------------------------------------------------------------- sam_pe ----
@@ -503,27 +616,9 @@ def align_pe_batch(aligner, b1, b2, pair_id0: int, handles=None) -> str:
     pairs = list(zip(regs1, regs2))
     with aligner.timers.phase("PAIR"):
         pes = pestat(opt, idx.l_pac, pairs)
-        # mate rescue (batched)
-        gens = []
-        for i in range(b1.n):
-            for end in range(2):
-                regs_a = pairs[i][end]
-                regs_m = pairs[i][1 - end]
-                if not regs_a:
-                    continue
-                mate_b = (b2 if end == 0 else b1)
-                ms = mate_b.codes[i, : mate_b.lens[i]]
-                cand = [p for p in regs_a
-                        if p.score >= regs_a[0].score - opt.pen_unpaired]
-                for p in cand[: opt.max_matesw]:
-                    gens.append(matesw_gen(opt, idx, pes, p,
-                                           int(mate_b.lens[i]), ms,
-                                           regs_m))
-        count(aligner.timers, "pair.rescue_jobs", len(gens))
-        if gens:
-            run_matesw_rounds(opt, gens, aligner.mat_dev,
-                              q_pad=wd.rescue_q, t_pad=wd.rescue_t,
-                              timers=aligner.timers)
+        rescue_batch(opt, idx, pes, pairs, b1, b2, aligner.mat_dev,
+                     q_pad=wd.rescue_q, t_pad=wd.rescue_t,
+                     timers=aligner.timers)
     with aligner.timers.phase("SAM"):
         return pe_sam_text(aligner, b1, b2, pair_id0, pairs, pes,
                            codes_dev1, codes_dev2)
@@ -554,21 +649,22 @@ def _pe_generator_text(aligner, b1, b2, pair_id0, pairs, pes, rows,
 
 REG_INT_FIELDS = ("rb", "re", "qb", "qe", "rid", "score", "truesc", "w",
                   "csub", "sub_n")
-_reg_ints = operator.attrgetter(*REG_INT_FIELDS)
 
 
-def region_columns(pairs) -> dict:
+def region_columns(pairs, fields=REG_INT_FIELDS) -> dict:
     """A batch's region lists read once into CSR columns: ``bounds``
     [2B + 1] (end e of pair i is 2i + e, its regions in list order), an
-    int64 column for each of ``REG_INT_FIELDS`` and ``frac_rep``."""
+    int64 column for each of `fields` (two or more) and ``frac_rep``."""
     ends = [end for p in pairs for end in p]
     regs = [r for end in ends for r in end]
-    n, nf = len(regs), len(REG_INT_FIELDS)
+    n, nf = len(regs), len(fields)
     bounds = np.zeros(len(ends) + 1, np.int64)
     np.cumsum([len(end) for end in ends], out=bounds[1:])
-    ints = np.fromiter(itertools.chain.from_iterable(map(_reg_ints, regs)),
-                       np.int64, count=n * nf).reshape(n, nf).T.copy()
-    cols = dict(zip(REG_INT_FIELDS, ints))
+    ints = np.fromiter(
+        itertools.chain.from_iterable(map(operator.attrgetter(*fields),
+                                          regs)),
+        np.int64, count=n * nf).reshape(n, nf).T.copy()
+    cols = dict(zip(fields, ints))
     cols["frac_rep"] = np.fromiter((r.frac_rep for r in regs), np.float64,
                                    count=n)
     cols["bounds"] = bounds

@@ -2,7 +2,8 @@
 
 The C++ sources in this directory (SA-IS index construction, seed
 chaining (``chain.cpp``), the extension replay, SAM assembly, the flat
-tier's SE and PE selection (``flatsel.cpp``); ``core.h``
+tier's SE and PE selection (``flatsel.cpp``), mate rescue's rounds
+(``rescue.cpp``); ``core.h``
 holds what chaining and the replay share) compile into one shared
 library with a plain C interface, loaded via ctypes.  ``load_native``
 compiles them with g++ (``GXX``) at first use into ``build/tpubwa_torch/``,
@@ -28,12 +29,12 @@ _lib = None
 
 
 def as_ptr(a):
-    """A ctypes pointer to a contiguous int64, int32, uint8 or float64
-    numpy array's data (the caller keeps the array alive)."""
+    """A ctypes pointer to a contiguous int64, int32, uint32, uint8 or
+    float64 numpy array's data (the caller keeps the array alive)."""
     c = ctypes
     return a.ctypes.data_as(c.POINTER(
-        {"int64": c.c_int64, "int32": c.c_int32, "uint8": c.c_uint8,
-         "float64": c.c_double}[a.dtype.name]))
+        {"int64": c.c_int64, "int32": c.c_int32, "uint32": c.c_uint32,
+         "uint8": c.c_uint8, "float64": c.c_double}[a.dtype.name]))
 
 
 def _sources() -> list[Path]:
@@ -187,4 +188,28 @@ def _declare(lib) -> None:
         c.c_int64,                      # read_id0
         u8p, i64p, i64p, i64p,          # tier, prim, sub, sub_n
         i64p, i64p,                     # alt_cnt, alt_rows
+    ]
+
+    u32p = c.POINTER(c.c_uint32)
+    lib.pe_rescue_round1.restype = c.c_int64
+    lib.pe_rescue_round1.argtypes = [
+        c.c_int64, i64p,                # B pairs, bounds [2B + 1]
+        i64p, i64p, i64p,               # rb, rid, score
+        u8p, i64p, i64p,                # pe failed, low, high
+        i64p, i64p, c.c_int64,          # contig_off, contig_len, n_contigs
+        c.c_int64, u32p,                # l_pac, pac
+        u8p, i64p, u8p, i64p,           # codes0, lens0, codes1, lens1
+        c.c_int64,                      # width
+        c.c_int64, c.c_int64,           # pen_unpaired, max_matesw
+        c.c_int64, c.c_int64,           # min_seed_len, minsc
+        c.c_int64, c.c_int64, c.c_int64,  # q_pad, t_pad, cap
+        i32p, i64p, i64p, u8p, i64p,    # buf, anchor, rb, rev, lms
+        i64p,                           # out [3]
+    ]
+    lib.pe_rescue_round2.restype = c.c_int64
+    lib.pe_rescue_round2.argtypes = [
+        c.c_int64, i32p,                # J, buf1
+        c.c_int64, c.c_int64,           # q_pad, t_b1
+        i64p, c.c_int64, c.c_int64,     # res [4, J], min_seed_len, t_pad
+        i32p, i64p, i64p,               # buf2, hits, out [1]
     ]

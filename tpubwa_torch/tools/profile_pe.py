@@ -18,7 +18,7 @@ time lands in whatever synchronises next.  The cumulative times of the
 Python functions are not moved by that.
 
 The last line is one JSON record: the warm batch's seconds and phases,
-the profiled batch's seconds, and the cumulative seconds of the six
+the profiled batch's seconds, and the cumulative seconds of the five
 functions of ``align/pair.py`` that the PAIR and SAM phases are made of
 (``H1_FUNCS``), with their shares of the profiled batch.  ``--device
 cuda`` (the default) raises when torch sees no GPU; it never falls back
@@ -37,8 +37,8 @@ import time
 from tpubwa_torch.tools.bench import ROOT, _sync, ensure_fixture
 
 N_READS, BATCH_READS = 20_000, 8192     # the script's fixture and batch
-H1_FUNCS = ("pestat", "matesw_gen", "run_matesw_rounds", "mem_pair",
-            "pe_sam_text", "_pe_generator_text")
+H1_FUNCS = ("pestat", "rescue_batch", "mem_pair", "pe_sam_text",
+            "_pe_generator_text")
 
 
 def h1_times(st: pstats.Stats) -> dict:

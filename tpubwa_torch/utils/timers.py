@@ -25,7 +25,12 @@ Counters (``count``; once a batch or a call, never a read):
           (``align/pair.py::pe_sam_text``; a pair whose cigar overflows
           its pack still goes to the generator tier)
   bsw.calls, bsw.rounds — ``flatext.run_phased`` calls and their rounds
-  pair.rescue_jobs — mate-rescue jobs that PAIR built
+  pair.rescue_jobs — anchors PAIR considered for mate rescue (an
+          anchor whose mate is placed, or whose windows reach no SW,
+          runs none)
+  pair.rescue_sw — anchors that ran a rescue SW: the first rescue
+          round's lanes (``pair.rescue_batch``)
+  pair.rescued — regions the rescue inserted: the second round's lanes
   fastq.fallback_batches — batches the line parser took
           (``io/fastq.py::stream_batches``)
   fastq.wide_batches — batches the drivers placed in the wide bucket
@@ -33,7 +38,7 @@ Counters (``count``; once a batch or a call, never a read):
   seed.overflow_reads — reads whose SMEM or seed list was cut to its
           capacity (``Aligner.seed_batch_finish``)
   pair.rescue_truncated — mate-rescue jobs whose query or target was cut
-          to its pad (``pair.run_matesw_rounds``)
+          to its pad (``pair.rescue_batch``)
 
 Under ``-t N`` the workers share one PhaseTimers, so a phase's total is
 summed over threads and may exceed the wall.  While a ``torch.profiler``
